@@ -1,0 +1,32 @@
+"""PyTorch + CUDA port of the DDLO framework, for NVIDIA Hopper (H100).
+
+The JAX package ``dynamic_direct_lidar_odometry_tpu`` is the reference;
+this package mirrors its layout (``core/``, ``ops/``, ``odometry/``,
+``pipeline.py``) module by module so each counterpart is easy to find,
+and is held against it by the ``tests/test_torch_*.py`` parity tests.
+
+- Plain functions on tensors; state is ``NamedTuple``s of tensors whose
+  field names match the JAX package's. The system has no learned
+  parameters, so there is no ``nn.Module``.
+- The device is explicit (``init_state(..., device=)``); there is no
+  global default device.
+- Every Pallas kernel on the ported path is a hand-written CUDA kernel
+  under ``csrc/`` (see ``ops/nn_cuda.py``). On CPU tensors the port takes
+  the JAX CPU paths; on CUDA tensors it takes the JAX TPU paths.
+- Reused without copying from the JAX package: its jax-free ``config``,
+  ``io.dataset`` and ``io.synthetic`` modules. Nothing here imports jax.
+
+Slice ported so far: plain DLO (``dynamic_detection=False``); see
+ROADMAP.md for what follows.
+"""
+
+import torch
+
+# No TF32 anywhere: pose composes, covariance products and the GICP
+# normal equations need full f32, the counterpart of the JAX package's
+# Precision.HIGHEST pins (ROADMAP.md "Numerics to carry over").
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+torch.set_float32_matmul_precision("highest")
+
+__version__ = "0.1.0"

@@ -1,0 +1,323 @@
+"""Fixed-capacity keyframe store and locality-based submap selection
+(counterpart of ``odometry/keyframes.py``).
+
+The submap is the union of the top-knn keyframes nearest the current
+pose and the top-kcv / top-kcc nearest among the convex / concave hull
+keyframes, "top-k" keeping every frame that ties the k-th distance. The
+hulls are the JAX package's exact on-device forms (brute-force facet
+test; alpha-complex test with inCircle determinants and the
+alpha-exposure boundary-edge test), in their DENSE (K, K, K) shape; the
+blocked K > 64 forms are not ported yet.
+
+The store is updated IN PLACE by :func:`add_keyframe` (the JAX package
+rebuilds it functionally): the caller's old ``KeyframeStore`` and the
+returned one share their tensors.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Tuple
+
+import torch
+
+from dynamic_direct_lidar_odometry_tpu_torch.core.cloud import SENTINEL
+
+_INF = 3.0e12
+
+
+class KeyframeStore(NamedTuple):
+    positions: torch.Tensor  # (K, 3)
+    quats: torch.Tensor  # (K, 4) [w,x,y,z]
+    points: torch.Tensor  # (K, P, 3)
+    masks: torch.Tensor  # (K, P) bool
+    covs: torch.Tensor  # (K, P, 3, 3)
+    valid: torch.Tensor  # (K,) bool
+    count: torch.Tensor  # () int32
+
+    @property
+    def capacity(self) -> int:
+        return self.positions.shape[0]
+
+
+def empty_store(max_keyframes: int, max_points: int, *, device) -> KeyframeStore:
+    K, P = max_keyframes, max_points
+    f32 = torch.float32
+    return KeyframeStore(
+        positions=torch.zeros((K, 3), dtype=f32, device=device),
+        quats=torch.tensor([1.0, 0, 0, 0], dtype=f32, device=device).repeat(K, 1),
+        points=torch.full((K, P, 3), SENTINEL, dtype=f32, device=device),
+        masks=torch.zeros((K, P), dtype=torch.bool, device=device),
+        covs=torch.eye(3, dtype=f32, device=device).repeat(K, P, 1, 1),
+        valid=torch.zeros((K,), dtype=torch.bool, device=device),
+        count=torch.tensor(0, dtype=torch.int32, device=device),
+    )
+
+
+def _check_dense(K: int):
+    if K > 64:
+        raise NotImplementedError(
+            f"hull masks for {K} > 64 keyframes need the blocked triple "
+            "sweeps, not ported yet: ROADMAP.md queue 1 item 8 (K > 64 hulls)"
+        )
+
+
+def add_keyframe(
+    store: KeyframeStore,
+    do_add: bool,
+    position: torch.Tensor,
+    quat: torch.Tensor,
+    points: torch.Tensor,
+    mask: torch.Tensor,
+    covs: torch.Tensor,
+) -> KeyframeStore:
+    """Insert a keyframe at slot ``count`` when ``do_add``; at capacity
+    EVICT the farthest-from-``position`` keyframe that is not a
+    convex-hull vertex (the farthest overall if every valid keyframe is
+    one). Writes the store's tensors IN PLACE."""
+    if not bool(do_add):
+        return store
+    K = store.capacity
+    if int(store.count) >= K:
+        ds = torch.linalg.vector_norm(store.positions - position, dim=1)
+        hull = convex_hull_mask(store.positions, store.valid)
+        cand = store.valid & ~hull
+        if not bool(cand.any()):
+            cand = store.valid
+        i = int(torch.argmax(torch.where(cand, ds, -1.0)))
+    else:
+        i = min(int(store.count), K - 1)
+    # in-place slot write
+    store.positions[i] = position
+    store.quats[i] = quat
+    store.points[i] = points
+    store.masks[i] = mask
+    store.covs[i] = covs
+    store.valid[i] = True
+    return store._replace(count=store.count + 1)
+
+
+# ---------------------------------------------------------------------------
+# Hull membership, exact and on-device (dense K <= 64 forms)
+# ---------------------------------------------------------------------------
+
+
+def _dot3(n: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """sum_d n[..., d] * p[d] with explicit f32 muls/adds (no matmul
+    kernel, so the same rounding on CPU and CUDA)."""
+    return n[..., 0] * p[..., 0] + n[..., 1] * p[..., 1] + n[..., 2] * p[..., 2]
+
+
+def convex_hull_mask(positions: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Exact 3D convex-hull vertex set by the brute-force facet test."""
+    _check_dense(positions.shape[0])
+    return _convex_hull_mask_dense(positions, valid)
+
+
+def _convex_hull_mask_dense(
+    positions: torch.Tensor, valid: torch.Tensor
+) -> torch.Tensor:
+    K = positions.shape[0]
+    p = positions
+    v = valid
+    n_valid = v.sum()
+    scale = torch.max(torch.where(v[:, None], torch.abs(p), 0.0))
+    d1 = p[:, None, :] - p[None, :, :]
+    n = torch.linalg.cross(d1[:, :, None, :], d1[:, None, :, :], dim=-1)  # (K,K,K,3)
+    nn = torch.sqrt(torch.sum(n * n, dim=-1))
+    ok = (
+        v[:, None, None] & v[None, :, None] & v[None, None, :]
+        & (nn > 1e-6 * scale * scale)
+    )
+    sp = _dot3(n[:, :, :, None, :], p[None, None, None, :, :])  # (K,K,K,K)
+    off = _dot3(n, p[:, None, None, :])  # (K,K,K)
+    smax = torch.amax(torch.where(v[None, None, None, :], sp, -3e37), dim=-1)
+    smin = torch.amin(torch.where(v[None, None, None, :], sp, 3e37), dim=-1)
+    tol = 1e-5 * scale * torch.clamp_min(nn, 1e-30)
+    upper = smax - off
+    lower = smin - off
+    near = (upper <= tol) & (lower >= -tol)
+    facet = ok & ~near & ((upper <= tol) | (lower >= -tol))
+    mask = (
+        torch.any(torch.any(facet, dim=2), dim=1)
+        | torch.any(torch.any(facet, dim=2), dim=0)
+        | torch.any(torch.any(facet, dim=1), dim=0)
+    )
+    any_facet = torch.any(facet)
+
+    # exactly-coplanar fallback: exact 2D XY edge test over (K,K) pairs;
+    # collinear-in-XY sets mark every pair -> all-valid
+    e = -d1[..., :2]
+    n2 = torch.stack([-e[..., 1], e[..., 0]], dim=-1)  # (K,K,2)
+    nn2 = torch.sqrt(torch.sum(n2 * n2, dim=-1))
+    ok2 = v[:, None] & v[None, :] & (nn2 > 1e-9)
+    p2 = p[:, :2]
+    sp2 = n2[:, :, None, 0] * p2[None, None, :, 0] + n2[:, :, None, 1] * p2[None, None, :, 1]
+    off2 = n2[..., 0] * p2[:, None, 0] + n2[..., 1] * p2[:, None, 1]
+    tol2 = 1e-5 * scale * torch.clamp_min(nn2, 1e-30)
+    smax2 = torch.amax(torch.where(v[None, None, :], sp2, -3e37), dim=-1)
+    smin2 = torch.amin(torch.where(v[None, None, :], sp2, 3e37), dim=-1)
+    edge = ok2 & (((smax2 - off2) <= tol2) | ((smin2 - off2) >= -tol2))
+    mask2 = torch.any(edge, dim=1) | torch.any(edge, dim=0)
+    mask2 = torch.where(torch.any(mask2), mask2, valid)
+
+    mask = torch.where(any_facet, mask, mask2) & valid
+    return torch.where(n_valid >= 4, mask, torch.zeros_like(mask))
+
+
+def concave_hull_mask(
+    positions: torch.Tensor, valid: torch.Tensor, alpha: torch.Tensor
+) -> torch.Tensor:
+    """Exact 2D alpha-shape boundary by the brute-force alpha-complex
+    test (computeConcaveHull, odom.cc:1030-1065)."""
+    _check_dense(positions.shape[0])
+    return _concave_hull_mask_dense(positions, valid, alpha)
+
+
+def _concave_hull_mask_dense(
+    positions: torch.Tensor, valid: torch.Tensor, alpha: torch.Tensor
+) -> torch.Tensor:
+    p2 = positions[:, :2]
+    v = valid
+    alpha = torch.as_tensor(alpha, dtype=positions.dtype, device=positions.device)
+    scale = torch.max(torch.where(v[:, None], torch.abs(p2), 0.0))
+    tol = 1e-4 * scale
+    ab = p2[None, :, :] - p2[:, None, :]  # ab[i,j] = p_j - p_i
+    la = torch.sum(ab * ab, dim=-1)  # (K,K)
+    dxy = 2.0 * (
+        ab[:, :, None, 0] * ab[:, None, :, 1]
+        - ab[:, :, None, 1] * ab[:, None, :, 0]
+    )  # 4 * signed_area(i,j,k)
+    R = torch.sqrt(
+        la[:, :, None] * la[:, None, :] * la.T[None, :, :]
+    ) / torch.clamp_min(torch.abs(dxy), 1e-12)
+    ok = (
+        v[:, None, None] & v[None, :, None] & v[None, None, :]
+        & (torch.abs(dxy) > 1e-9)
+    )
+    # emptiness by the inCircle determinant (differences first)
+    dx = p2[:, None, 0] - p2[None, :, 0]  # [m, l] = p_m - p_l
+    dy = p2[:, None, 1] - p2[None, :, 1]
+    q = dx * dx + dy * dy
+    m1 = dy[:, None, :] * q[None, :, :] - q[:, None, :] * dy[None, :, :]
+    m2 = dx[:, None, :] * q[None, :, :] - q[:, None, :] * dx[None, :, :]
+    m3 = dx[:, None, :] * dy[None, :, :] - dy[:, None, :] * dx[None, :, :]
+    det = (
+        dx[:, None, None, :] * m1[None, :, :, :]
+        - dy[:, None, None, :] * m2[None, :, :, :]
+        + q[:, None, None, :] * m3[None, :, :, :]
+    )
+    sgn = torch.sign(dxy)
+    thr = torch.abs(dxy) * torch.clamp_min(2.0 * R * tol - tol * tol, 0.0) * 0.5
+    inside = (det * sgn[..., None] > thr[..., None]) & v[None, None, None, :]
+    kept = ok & (R <= alpha) & ~torch.any(inside, dim=-1)
+    in_kept = (
+        torch.any(torch.any(kept, dim=2), dim=1)
+        | torch.any(torch.any(kept, dim=2), dim=0)
+        | torch.any(torch.any(kept, dim=1), dim=0)
+    )
+    # boundary edges by the alpha-exposure test: an in-complex edge is
+    # boundary iff one of its two alpha-disks is empty
+    e_ok = v[:, None] & v[None, :] & (la <= 4.0 * alpha * alpha) & (la > 1e-12)
+    mid = 0.5 * (p2[:, None, :] + p2[None, :, :])  # (K,K,2)
+    h = torch.sqrt(torch.clamp_min(alpha * alpha - la / 4.0, 0.0))
+    perp = torch.stack([-ab[..., 1], ab[..., 0]], dim=-1) / torch.sqrt(
+        torch.clamp_min(la, 1e-12)
+    )[..., None]
+
+    def disk_empty(c):
+        d2 = torch.sum((c[:, :, None, :] - p2[None, None, :, :]) ** 2, dim=-1)
+        ins = (d2 < (alpha - tol) ** 2) & v[None, None, :]
+        return ~torch.any(ins, dim=-1)
+
+    exposed = e_ok & (
+        disk_empty(mid + h[..., None] * perp) | disk_empty(mid - h[..., None] * perp)
+    )
+    boundary = (torch.any(exposed, dim=1) | ~in_kept) & v
+    return torch.where(v.sum() >= 5, boundary, torch.zeros_like(boundary))
+
+
+# ---------------------------------------------------------------------------
+# Submap selection
+# ---------------------------------------------------------------------------
+
+
+def _top_k_ties_mask(ds: torch.Tensor, eligible: torch.Tensor, k: int) -> torch.Tensor:
+    """Every eligible frame whose distance <= the k-th smallest eligible
+    distance (pushSubmapIndices, odom.cc:1180-1213)."""
+    d = torch.where(eligible, ds, _INF)
+    k = min(k, d.shape[0])
+    kth = torch.kthvalue(d, k).values
+    return eligible & (d <= kth)
+
+
+def select_submap(
+    store: KeyframeStore,
+    current_pos: torch.Tensor,
+    alpha: torch.Tensor,
+    knn: int,
+    kcv: int,
+    kcc: int,
+    cv_mask: torch.Tensor | None = None,
+    cc_mask: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Union submap selection mask over keyframe slots (odom.cc:1215-1283);
+    the exact on-device hulls are computed inline unless given."""
+    ds = torch.linalg.vector_norm(store.positions - current_pos, dim=1)
+    sel = _top_k_ties_mask(ds, store.valid, knn)
+    cv = (
+        convex_hull_mask(store.positions, store.valid)
+        if cv_mask is None
+        else cv_mask & store.valid
+    )
+    sel = sel | _top_k_ties_mask(ds, cv, kcv)
+    cc = (
+        concave_hull_mask(store.positions, store.valid, alpha)
+        if cc_mask is None
+        else cc_mask & store.valid
+    )
+    return sel | _top_k_ties_mask(ds, cc, kcc)
+
+
+def gather_submap(
+    store: KeyframeStore,
+    sel: torch.Tensor,
+    max_slots: int,
+    capacity: int | None = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Concatenate the selected keyframes' clouds + covariances into the
+    fixed submap buffer (odom.cc:1290-1314).
+
+    Selected slots come first, stable by slot index, cut to ``max_slots``.
+    With ``capacity`` the per-keyframe blocks are compacted by the JAX
+    package's block copies: slot i writes its FULL P-row block at its
+    cumulative valid offset (the next slot overwrites the sentinel tail),
+    the start clamped to ``capacity`` like ``dynamic_update_slice`` into
+    a buffer with a P-row scratch tail, which drops overflow.
+
+    Returns (points (S,3), mask (S,), covs (S,3,3)), S = capacity or
+    max_slots * P.
+    """
+    order = torch.argsort(torch.where(sel, 0, 1), stable=True)[:max_slots]
+    picked = sel[order]
+    pts = store.points[order]  # (S_kf, P, 3)
+    msk = store.masks[order] & picked[:, None]
+    cvs = store.covs[order]
+    P = store.points.shape[1]
+    pts = torch.where(msk[..., None], pts, SENTINEL)
+    if capacity is None:
+        S = max_slots * P
+        return pts.reshape(S, 3), msk.reshape(S), cvs.reshape(S, 3, 3)
+
+    cnt = msk.sum(dim=1)
+    offs = (torch.cumsum(cnt, 0) - cnt).tolist()  # host sync
+    eye = torch.eye(3, dtype=cvs.dtype, device=cvs.device)
+    cvs = torch.where(msk[..., None, None], cvs, eye)
+    buf_p = torch.full((capacity + P, 3), SENTINEL, dtype=pts.dtype, device=pts.device)
+    buf_c = eye.repeat(capacity + P, 1, 1)
+    for i, o in enumerate(offs):
+        o = min(o, capacity)
+        buf_p[o : o + P] = pts[i]
+        buf_c[o : o + P] = cvs[i]
+    total = torch.clamp_max(cnt.sum(), capacity)
+    out_msk = torch.arange(capacity, device=pts.device) < total
+    return buf_p[:capacity], out_msk, buf_c[:capacity]

@@ -1,0 +1,349 @@
+"""VGICP-style registration (counterpart of ``ops/gicp.py``).
+
+Same linearization (NN correspondences, Mahalanobis weights
+``M = (C_B + R C_A R^T)^-1``, ``H = J^T M J``), same unrolled LDLT solve
+and the same Levenberg-Marquardt / Gauss-Newton loops as the JAX
+package. ``lax.while_loop`` becomes a Python loop: the accept/reject and
+convergence tests read one scalar per LM iteration back to the host.
+All scalar LM state stays in f32 on the device, so the accept/reject
+decisions are the JAX package's arithmetic.
+
+Correspondence backend (``GICPSettings.nn_impl``): "sparse" launches the
+CUDA kernel on CUDA tensors (``ops/nn_cuda.py``) with the target-side
+preparation hoisted out of the loop; on CPU every impl takes the exact
+sweep, as the JAX package does off the TPU.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from dynamic_direct_lidar_odometry_tpu_torch.core import device, se3
+from dynamic_direct_lidar_odometry_tpu_torch.core.cloud import SENTINEL
+from dynamic_direct_lidar_odometry_tpu_torch.ops import knn as knn_ops
+from dynamic_direct_lidar_odometry_tpu_torch.ops import nn_cuda
+
+
+class GICPSettings(NamedTuple):
+    """Optimizer settings; fields and defaults as the JAX package's."""
+
+    max_correspondence_distance: float = 1.0
+    max_iterations: int = 64
+    rotation_epsilon: float = 2e-3
+    transformation_epsilon: float = 5e-4
+    lm_max_iterations: int = 10
+    lm_init_lambda_factor: float = 1e-9
+    optimizer: str = "lm"  # "lm" | "gn"
+    compute_residuals: bool = True
+    record_trace: bool = False
+    nn_impl: str = "auto"  # "auto" | "exact" | "pallas" | "sparse"
+
+
+class GICPResult(NamedTuple):
+    T: torch.Tensor  # (4, 4) final transformation
+    converged: torch.Tensor  # () bool
+    iterations: torch.Tensor  # () int32
+    final_error: torch.Tensor  # () f32
+    final_hessian: torch.Tensor  # (6, 6)
+    num_inliers: torch.Tensor  # () int32
+    residuals: torch.Tensor  # (N,)
+    correspondences: torch.Tensor  # (N,) int32, -1 if invalid
+    # (max_iterations, 4, 4) pose after each outer iteration (rows past
+    # `iterations` repeat the final pose); (0, 4, 4) unless record_trace
+    pose_trace: Optional[torch.Tensor] = None
+
+
+def inv3x3(m: torch.Tensor) -> torch.Tensor:
+    """Batched closed-form (adjugate) 3x3 inverse."""
+    a, b, c = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
+    d, e, f = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
+    g, h, i = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
+    A = e * i - f * h
+    B = -(d * i - f * g)
+    C = d * h - e * g
+    D = -(b * i - c * h)
+    E = a * i - c * g
+    F = -(a * h - b * g)
+    G = b * f - c * e
+    H = -(a * f - c * d)
+    I = a * e - b * d  # noqa: E741
+    det = a * A + b * B + c * C
+    inv_det = 1.0 / torch.where(torch.abs(det) < 1e-20, 1e-20, det)
+    adj = torch.stack(
+        [
+            torch.stack([A, D, G], dim=-1),
+            torch.stack([B, E, H], dim=-1),
+            torch.stack([C, F, I], dim=-1),
+        ],
+        dim=-2,
+    )
+    return adj * inv_det[..., None, None]
+
+
+def solve6_ldlt(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Solve the symmetric 6x6 normal equations by the JAX package's
+    unrolled LDLT (the reference's Eigen::LDLT), operation for operation,
+    so the LM accept/reject decisions match."""
+    L = [[None] * 6 for _ in range(6)]
+    D = [None] * 6
+    for j in range(6):
+        d = A[j, j]
+        for k in range(j):
+            d = d - L[j][k] * L[j][k] * D[k]
+        D[j] = torch.where(torch.abs(d) < 1e-30, 1e-30, d)
+        for i in range(j + 1, 6):
+            v = A[i, j]
+            for k in range(j):
+                v = v - L[i][k] * L[j][k] * D[k]
+            L[i][j] = v / D[j]
+    y = [None] * 6
+    for i in range(6):
+        v = b[i]
+        for k in range(i):
+            v = v - L[i][k] * y[k]
+        y[i] = v
+    x = [None] * 6
+    for i in reversed(range(6)):
+        v = y[i] / D[i]
+        for k in range(i + 1, 6):
+            v = v - L[k][i] * x[k]
+        x[i] = v
+    return torch.stack(x)
+
+
+def _linearize(
+    T: torch.Tensor,
+    src_pts: torch.Tensor,
+    src_mask: torch.Tensor,
+    src_covs: torch.Tensor,
+    tgt_pts: torch.Tensor,
+    tgt_mask: torch.Tensor,
+    tgt_covs: torch.Tensor,
+    max_corr_dist: float,
+    nn_impl: str = "auto",
+    prune_dilation: float = 1.0,
+    sparse_prep: nn_cuda.SparseTarget | None = None,
+    tgt_feat: torch.Tensor | None = None,
+):
+    """One GICP linearization at pose T: correspondences, Mahalanobis
+    weights, error y0 = sum e^T M e and the normal equations H, b with
+    J = [skew(T a) | -I]. Returns (y0, H, b, (idx, valid, M, B, sqd))."""
+    R = T[:3, :3]
+    src_t = se3.transform_points(T, src_pts)
+    src_t_q = torch.where(src_mask[:, None], src_t, SENTINEL)
+
+    on_acc = device.on_accelerator(src_pts)
+    if nn_impl == "sparse" and on_acc:
+        if sparse_prep is None:
+            sparse_prep = nn_cuda.prepare_sparse_target(tgt_pts)
+        idx, sqd = nn_cuda.nn1_sparse_prepared(
+            src_t_q, sparse_prep, radius=max_corr_dist * prune_dilation
+        )
+    elif nn_impl == "exact":
+        idx, sqd = knn_ops.nn1(src_t_q, tgt_pts)
+    else:  # "auto", "pallas", or "sparse" off the accelerator
+        idx, sqd = knn_ops.nn1_best(src_t_q, tgt_pts)
+    # invalid targets sit at the SENTINEL: the gate below discards them
+    valid = src_mask & (sqd < max_corr_dist * max_corr_dist)
+    vf = valid.to(src_pts.dtype)
+    if tgt_feat is None:
+        tgt_feat = torch.cat(
+            [tgt_pts, tgt_covs.reshape(tgt_pts.shape[0], 9)], dim=1
+        )
+    # the exact sweeps may return a padded target row for a sentinel
+    # query (distance 0 to the 1e6 padding); clamp like a JAX gather
+    feat = tgt_feat[idx.long().clamp_max(tgt_feat.shape[0] - 1)]
+    B = feat[:, :3]
+    cov_B = feat[:, 3:].reshape(-1, 3, 3)
+    RCAR = torch.matmul(torch.matmul(R, src_covs), R.T)
+    M = inv3x3(cov_B + RCAR)  # (N, 3, 3)
+
+    e = (B - src_t) * vf[:, None]
+    Me = torch.matmul(M, e[:, :, None])[:, :, 0]
+    y0 = torch.sum(e * Me)
+
+    S = se3.skew(src_t)
+    eye = torch.eye(3, dtype=S.dtype, device=S.device).expand_as(S)
+    J = torch.cat([S, -eye], dim=-1) * vf[:, None, None]  # (N, 3, 6)
+    MJ = torch.matmul(M, J)
+    N = src_pts.shape[0]
+    J2 = J.reshape(N * 3, 6)
+    H = torch.matmul(J2.T, MJ.reshape(N * 3, 6))
+    b = torch.matmul(J2.T, Me.reshape(N * 3))
+    return y0, H, b, (idx, valid, M, B, sqd)
+
+
+def _compute_error(T, src_pts, aux):
+    """sum e^T M e at a candidate pose, correspondences and weights held
+    from the last linearization."""
+    _, valid, M, B, _ = aux
+    src_t = se3.transform_points(T, src_pts)
+    e = (B - src_t) * valid[:, None].to(src_pts.dtype)
+    Me = torch.matmul(M, e[:, :, None])[:, :, 0]
+    return torch.sum(e * Me)
+
+
+def _is_converged(delta: torch.Tensor, s: GICPSettings) -> torch.Tensor:
+    """Reference convergence test (lsq_registration_impl.hpp:129-139)."""
+    eye = torch.eye(3, dtype=delta.dtype, device=delta.device)
+    Rd = torch.abs(delta[:3, :3] - eye) / s.rotation_epsilon
+    td = torch.abs(delta[:3, 3]) / s.transformation_epsilon
+    return torch.maximum(torch.max(Rd), torch.max(td)) < 1.0
+
+
+def align(
+    src_pts: torch.Tensor,
+    src_mask: torch.Tensor,
+    src_covs: torch.Tensor,
+    tgt_pts: torch.Tensor,
+    tgt_mask: torch.Tensor,
+    tgt_covs: torch.Tensor,
+    guess: torch.Tensor,
+    settings: GICPSettings = GICPSettings(),
+    axis_name: str | None = None,
+) -> GICPResult:
+    """GICP alignment: T minimizing sum (b - T a)^T M (b - T a), by the
+    LM stepper (lsq_registration_impl.hpp:176-232) or the GN stepper
+    (:156-173), with the JAX package's degenerate-H guard, rho 0/0 guard
+    and final residual pass."""
+    if axis_name is not None:
+        raise NotImplementedError(
+            "point-sharded align (axis_name) is not ported yet: ROADMAP.md "
+            "queue 1 item 15"
+        )
+    s = settings
+    dev = src_pts.device
+    f32 = torch.float32
+    tgt_q = torch.where(tgt_mask[:, None], tgt_pts, SENTINEL)
+
+    # target-side sparse prep and packed winner features, hoisted out of
+    # the optimization loop (the target never moves)
+    sparse_prep = None
+    if device.on_accelerator(tgt_pts) and s.nn_impl == "sparse":
+        sparse_prep = nn_cuda.prepare_sparse_target(tgt_q)
+    tgt_feat = torch.cat([tgt_q, tgt_covs.reshape(tgt_pts.shape[0], 9)], dim=1)
+
+    def lin(T, nn_impl=s.nn_impl, prune_dilation=1.0):
+        return _linearize(
+            T, src_pts, src_mask, src_covs, tgt_q, tgt_mask, tgt_covs,
+            s.max_correspondence_distance, nn_impl, prune_dilation,
+            sparse_prep=sparse_prep, tgt_feat=tgt_feat,
+        )
+
+    eye6 = torch.eye(6, dtype=f32, device=dev)
+
+    def lm_inner(x0, lam, y0, H, b, aux):
+        """One step_lm: loop over lambda until a step is accepted
+        (rho >= 0), convergence is detected on a rejected step, or
+        lm_max_iterations is exhausted. Returns
+        (x, lam, done, accepted, conv_on_reject, delta)."""
+        nu = torch.tensor(2.0, dtype=f32, device=dev)
+        x, delta_done = x0, torch.eye(4, dtype=f32, device=dev)
+        done = accepted = conv = False
+        j = 0
+        while j < s.lm_max_iterations and not done:
+            d = solve6_ldlt(H + lam * eye6, -b)
+            delta = se3.se3_exp(d)
+            xi = se3.compose(delta, x)
+            yi = _compute_error(xi, src_pts, aux)
+            # d^T (H + lam I) d >= 0; guard exact convergence d = 0 (0/0)
+            denom = torch.clamp_min(torch.dot(d, lam * d - b), 1e-30)
+            rho = (y0 - yi) / denom
+            reject_t = rho < 0
+            flags = torch.stack([reject_t, reject_t & _is_converged(delta, s)])
+            reject, conv_on_reject = flags.tolist()  # host sync
+            if not reject:
+                t = 2.0 * rho - 1.0
+                lam = lam * torch.clamp_min(1.0 - t * t * t, 1.0 / 3.0)
+                x, done, accepted, delta_done = xi, True, True, delta
+            elif conv_on_reject:
+                done, conv, delta_done = True, True, delta
+            else:
+                lam = nu * lam
+                nu = 2.0 * nu
+            j += 1
+        return x, lam, done, accepted, conv, delta_done
+
+    x0 = guess.to(f32)
+    lm_lambda = torch.tensor(-1.0, dtype=f32, device=dev)
+    y_st = torch.tensor(0.0, dtype=f32, device=dev)
+    H_st = eye6
+    converged = failed = False
+    it = 0
+    trace = []
+    while it < s.max_iterations and not converged and not failed:
+        y0, H, b, aux = lin(x0)
+        hmax = torch.max(torch.abs(torch.diagonal(H)))
+        lam = torch.where(
+            lm_lambda < 0, s.lm_init_lambda_factor * hmax, lm_lambda
+        )
+        # degenerate normal equations (no correspondence inside the
+        # gate): stop with the pose unchanged
+        degenerate = bool(hmax < 1e-12)  # host sync
+        if s.optimizer == "gn":
+            d = solve6_ldlt(H + 1e-12 * eye6, -b)
+            if degenerate:
+                d = torch.zeros_like(d)
+            delta = se3.se3_exp(d)
+            x_new = se3.compose(delta, x0)
+            converged = degenerate or bool(_is_converged(delta, s))
+            y_st, H_st = y0, H
+        elif degenerate:
+            x_new, converged = x0, True
+            y_st = y0
+        else:
+            x_new, lam, done, accepted, conv_rej, delta = lm_inner(
+                x0, lam, y0, H, b, aux
+            )
+            converged = conv_rej or (accepted and bool(_is_converged(delta, s)))
+            failed = not done  # lm_max_iterations exhausted
+            y_st = y0
+            if accepted:
+                H_st = H
+        lm_lambda = lam
+        if s.record_trace:
+            trace.append(x_new)
+        x0 = x_new
+        it += 1
+
+    if s.compute_residuals:
+        # final per-point NN residuals at the final pose; the sparse
+        # backend dilates its pruning radius 3x and clamps there, the
+        # exact backends clamp at 1e3 (see the JAX package's align)
+        if s.nn_impl == "sparse":
+            y_fin, H_fin, _, aux = lin(x0, "sparse", prune_dilation=3.0)
+            res_cap = 3.0 * s.max_correspondence_distance
+        else:
+            y_fin, H_fin, _, aux = lin(x0)
+            res_cap = 1.0e3
+        idx, valid, _, _, sqd = aux
+        residuals = (
+            torch.clamp_max(torch.sqrt(torch.clamp_min(sqd, 0.0)), res_cap)
+            * src_mask
+        )
+        corr = torch.where(valid, idx, -1).to(torch.int32)
+        num_inliers = valid.sum(dtype=torch.int32)
+    else:
+        y_fin, H_fin = y_st, H_st
+        residuals = torch.zeros(src_pts.shape[0], dtype=f32, device=dev)
+        corr = torch.full((src_pts.shape[0],), -1, dtype=torch.int32, device=dev)
+        num_inliers = src_mask.sum(dtype=torch.int32)
+    if s.record_trace:
+        pose_trace = torch.stack(
+            trace + [x0] * (s.max_iterations - len(trace))
+        )
+    else:
+        pose_trace = torch.zeros((0, 4, 4), dtype=f32, device=dev)
+    return GICPResult(
+        T=x0,
+        converged=torch.tensor(converged, device=dev) & (num_inliers > 0),
+        iterations=torch.tensor(it, dtype=torch.int32, device=dev),
+        final_error=y_fin,
+        final_hessian=H_fin,
+        num_inliers=num_inliers,
+        residuals=residuals,
+        correspondences=corr,
+        pose_trace=pose_trace,
+    )
