@@ -2,22 +2,23 @@
 
 The JAX package ``dynamic_direct_lidar_odometry_tpu`` is the reference;
 this package mirrors its layout (``core/``, ``ops/``, ``odometry/``,
-``pipeline.py``) module by module so each counterpart is easy to find,
-and is held against it by the ``tests/test_torch_*.py`` parity tests.
+``detection/``, ``tracking/``, ``io/``, ``pipeline.py``) module by module
+so each counterpart is easy to find, and is held against it by the
+``tests/test_torch_*.py`` parity tests.
 
 - Plain functions on tensors; state is ``NamedTuple``s of tensors whose
   field names match the JAX package's. The system has no learned
   parameters, so there is no ``nn.Module``.
 - The device is explicit (``init_state(..., device=)``); there is no
   global default device.
-- Every Pallas kernel on the ported path is a hand-written CUDA kernel
+- Every Pallas kernel of the JAX package is a hand-written CUDA kernel
   under ``csrc/`` (see ``ops/nn_cuda.py``). On CPU tensors the port takes
   the JAX CPU paths; on CUDA tensors it takes the JAX TPU paths.
-- Reused without copying from the JAX package: its jax-free ``config``,
-  ``io.dataset`` and ``io.synthetic`` modules. Nothing here imports jax.
+- Nothing here imports jax or the JAX package: ``config``, ``io.dataset``
+  and ``io.synthetic`` are the port's own copies.
 
-Slice ported so far: plain DLO (``dynamic_detection=False``); see
-ROADMAP.md for what follows.
+Ported: the full pipeline (plain DLO and dynamic detection + tracking);
+see ROADMAP.md for what remains.
 """
 
 import torch

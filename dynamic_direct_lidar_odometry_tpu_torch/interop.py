@@ -9,8 +9,11 @@ the same mid-sequence state:
     port_state = state_from_numpy(jax_np, "cuda")
     back = state_to_numpy(port_state)                # numpy leaves
 
-Containers are matched by class name (``DDLOState``, ``OdomState``,
-``KeyframeStore``, ``TrackerState``); leaves keep their dtype and shape.
+Containers are matched by class name (the states ``DDLOState``,
+``OdomState``, ``KeyframeStore``, ``TrackerState``, and the outputs
+``DetectionResult``, ``Objects``, ``TrackerOutputs``); leaves keep their
+dtype and shape. ``state_to_numpy`` takes any of them, so tests compare
+outputs field by field.
 """
 
 from __future__ import annotations
@@ -21,7 +24,9 @@ import numpy as np
 import torch
 
 from dynamic_direct_lidar_odometry_tpu_torch import pipeline
+from dynamic_direct_lidar_odometry_tpu_torch.detection import detection
 from dynamic_direct_lidar_odometry_tpu_torch.odometry import keyframes, odometry
+from dynamic_direct_lidar_odometry_tpu_torch.ops import bbox
 from dynamic_direct_lidar_odometry_tpu_torch.tracking import tracker
 
 _CLASSES = {
@@ -31,6 +36,9 @@ _CLASSES = {
         odometry.OdomState,
         keyframes.KeyframeStore,
         tracker.TrackerState,
+        detection.DetectionResult,
+        bbox.Objects,
+        tracker.TrackerOutputs,
     )
 }
 
@@ -54,7 +62,8 @@ def state_from_numpy(tree: Any, device) -> Any:
 
 
 def state_to_numpy(state: Any) -> Any:
-    """The port's state container -> the same container with numpy leaves."""
+    """The port's state or output container -> the same container with
+    numpy leaves."""
     if _is_namedtuple(state):
         return type(state)(*(state_to_numpy(v) for v in state))
     return state.detach().cpu().numpy()

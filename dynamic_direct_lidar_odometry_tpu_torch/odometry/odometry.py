@@ -15,7 +15,7 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
-from dynamic_direct_lidar_odometry_tpu.config import DDLOConfig
+from dynamic_direct_lidar_odometry_tpu_torch.config import DDLOConfig
 from dynamic_direct_lidar_odometry_tpu_torch.core import se3
 from dynamic_direct_lidar_odometry_tpu_torch.core.cloud import SENTINEL
 from dynamic_direct_lidar_odometry_tpu_torch.odometry import keyframes as kf

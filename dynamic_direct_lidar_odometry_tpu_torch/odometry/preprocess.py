@@ -7,7 +7,7 @@ from typing import NamedTuple
 
 import torch
 
-from dynamic_direct_lidar_odometry_tpu.config import DDLOConfig
+from dynamic_direct_lidar_odometry_tpu_torch.config import DDLOConfig
 from dynamic_direct_lidar_odometry_tpu_torch.ops import filters
 
 

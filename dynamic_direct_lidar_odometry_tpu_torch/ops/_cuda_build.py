@@ -9,6 +9,7 @@ is no fallback.
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import hashlib
 import os
@@ -16,7 +17,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, NamedTuple, Sequence
+from typing import Dict, Mapping, NamedTuple, Sequence
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ddlo_torch_kernels"
@@ -73,3 +74,11 @@ def load(name: str, sources: Sequence[str]) -> Built:
     built = Built(ctypes.CDLL(str(out)), out, seconds, log)
     _LOADED[name] = built
     return built
+
+
+def load_all(libs: Mapping[str, Sequence[str]]) -> Dict[str, Built]:
+    """:func:`load` every ``name -> sources`` entry, one ``nvcc`` per
+    library, all started together."""
+    with concurrent.futures.ThreadPoolExecutor(max_workers=max(len(libs), 1)) as ex:
+        futures = {name: ex.submit(load, name, srcs) for name, srcs in libs.items()}
+        return {name: f.result() for name, f in futures.items()}

@@ -6,9 +6,10 @@ running min / top-k merge, then the returned squared distances are
 recomputed exactly as ``||q - t[idx]||^2``. These are the CPU path of
 every NN call and the oracle for the CUDA kernels.
 
-Dispatch follows the JAX package: on an accelerator ``nn1_best`` and
-``knn_best`` would take the dense Pallas kernels, which are not ported
-yet, so on CUDA tensors they raise instead of quietly running the sweep.
+Dispatch follows the JAX package: on the accelerator (CUDA tensors)
+``nn1_best`` takes the dense 1-NN kernel and ``knn_best`` the lane-class
+k-NN kernel (``ops/nn_cuda.py``), as the JAX package takes its Pallas
+kernels on the TPU; on the CPU both take the exact sweeps below.
 """
 
 from __future__ import annotations
@@ -20,37 +21,30 @@ import torch
 
 from dynamic_direct_lidar_odometry_tpu_torch.core import device
 from dynamic_direct_lidar_odometry_tpu_torch.core.cloud import pad_rows
+from dynamic_direct_lidar_odometry_tpu_torch.ops import nn_cuda
 
 _BIG = 3.0e12
 
 
 def nn1_best(query: torch.Tensor, target: torch.Tensor):
-    """1-NN: the exact sweep on CPU. On CUDA the JAX package's dense
-    ``_nn1_kernel`` path, not ported yet (ROADMAP queue 2 #2)."""
+    """1-NN: the dense kernel (``nn_cuda.nn1_dense``, the JAX package's
+    ``nn1_pallas``) on the accelerator, the exact sweep on the CPU."""
     if device.on_accelerator(query):
-        raise NotImplementedError(
-            "nn1_best on CUDA needs the dense 1-NN kernel (_nn1_kernel), not "
-            "ported yet: ROADMAP.md queue 2 #2. Use nn_impl='sparse' (the "
-            "default) or DDLO_NN_IMPL=exact."
-        )
+        return nn_cuda.nn1_dense(query, target)
     return nn1(query, target)
 
 
 def knn_best(query: torch.Tensor, target: torch.Tensor, k: int):
-    """k-NN for covariance neighborhoods: the exact sweep on CPU, and on
-    CUDA with ``DDLO_KNN_IMPL=exact``. Otherwise on CUDA the JAX
-    package's lane-class kernel path, not ported yet (ROADMAP queue 2 #3)."""
+    """k-NN for covariance neighborhoods: on the accelerator the lane-class
+    kernel (``nn_cuda.knn_approx``, the JAX package's
+    ``knn_approx_pallas``) unless ``DDLO_KNN_IMPL=exact`` or k > 128;
+    otherwise, and on the CPU, the exact sweep."""
     if (
         device.on_accelerator(query)
         and k <= 128
         and os.environ.get("DDLO_KNN_IMPL", "auto") != "exact"
     ):
-        raise NotImplementedError(
-            "knn_best on CUDA needs the lane-class k-NN kernels "
-            "(_nn_classes_kernel / _nn_classes_sparse_kernel), not ported "
-            "yet: ROADMAP.md queue 2 #3. Set DDLO_KNN_IMPL=exact for the "
-            "exact sweep."
-        )
+        return nn_cuda.knn_approx(query, target, k)
     return knn(query, target, k)
 
 

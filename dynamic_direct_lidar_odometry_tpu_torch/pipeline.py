@@ -1,12 +1,17 @@
-"""The DDLO pipeline transition (counterpart of ``pipeline.py``):
+"""The full DDLO pipeline transition (counterpart of ``pipeline.py``):
 
     state', outputs = step(cfg, state, scan, timestamp)
 
-Ported so far: the plain-DLO branch (``cfg.dynamic_detection=False``,
-the reference's ``dynamicDetection: false``): odometry, then the
-keyframe update on the registered scan, with empty detection and
-tracker outputs of the JAX package's shapes. The dynamic branch
-(detection + tracking) is ROADMAP.md queue 1 items 10-12.
+Stage order as in the JAX package (odom.cc:614-729):
+  preprocess -> S2S -> submap -> S2M -> residuals   (odometry.step)
+  -> project + segment + detect objects             (detection.detect)
+  -> track, classify static/dynamic                 (tracker.update)
+  -> drop UNDEFINED/DYNAMIC points                  (odom.cc:867-892)
+  -> re-filter the static cloud                     (odom.cc:901-918)
+  -> keyframe update on the dynamic-free cloud      (odom.cc:696-699)
+
+``cfg.dynamic_detection=False`` is plain DLO: the keyframe update takes
+the registered scan, and the detection and tracker outputs are empty.
 """
 
 from __future__ import annotations
@@ -15,13 +20,16 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from dynamic_direct_lidar_odometry_tpu.config import DDLOConfig
+from dynamic_direct_lidar_odometry_tpu_torch.config import DDLOConfig
 from dynamic_direct_lidar_odometry_tpu_torch.core import se3
 from dynamic_direct_lidar_odometry_tpu_torch.core.cloud import SENTINEL
+from dynamic_direct_lidar_odometry_tpu_torch.detection import detection
 from dynamic_direct_lidar_odometry_tpu_torch.detection.detection import DetectionResult
 from dynamic_direct_lidar_odometry_tpu_torch.odometry import odometry
+from dynamic_direct_lidar_odometry_tpu_torch.ops import filters
 from dynamic_direct_lidar_odometry_tpu_torch.ops.bbox import Objects
 from dynamic_direct_lidar_odometry_tpu_torch.tracking import tracker
+from dynamic_direct_lidar_odometry_tpu_torch.tracking.tracker import DYNAMIC, UNDEFINED
 
 
 class DDLOState(NamedTuple):
@@ -44,15 +52,6 @@ class DDLOOutputs(NamedTuple):
     new_keyframe_mask: torch.Tensor
 
 
-def _require_plain(cfg: DDLOConfig):
-    if cfg.dynamic_detection:
-        raise NotImplementedError(
-            "dynamic_detection=True needs the detection and tracking "
-            "slices, not ported yet: ROADMAP.md queue 1 items 10-12. Use "
-            "dataclasses.replace(cfg, dynamic_detection=False) for plain DLO."
-        )
-
-
 def init_state(
     cfg: DDLOConfig,
     raw_points,
@@ -62,7 +61,6 @@ def init_state(
     *,
     device,
 ) -> DDLOState:
-    _require_plain(cfg)
     dev = torch.device(device)
     return DDLOState(
         odom=odometry.init_state(cfg, raw_points, raw_mask, T0, device=dev),
@@ -83,11 +81,12 @@ def step(
 ) -> Tuple[DDLOState, DDLOOutputs]:
     """One DDLO transition. ``raw_points`` (H*W, 3) may carry NaN in
     invalid pixels; numpy inputs are moved to the state's device."""
-    _require_plain(cfg)
     dev = state.odom.T.device
     raw_points = torch.as_tensor(raw_points, dtype=torch.float32, device=dev)
     raw_mask = torch.as_tensor(raw_mask, dtype=torch.bool, device=dev)
+    stamp = torch.tensor(float(timestamp), dtype=torch.float32, device=dev)
     H, W = cfg.detection.rows, cfg.detection.columns
+    S = cfg.capacity.max_objects
 
     odo_state, odo = odometry.step(
         cfg, state.odom, raw_points, raw_mask, hull_masks,
@@ -98,32 +97,80 @@ def step(
     seg_world = se3.transform_points(odo.T, raw_points)
     seg_world = torch.where(raw_mask[:, None], seg_world, SENTINEL)
 
-    det = _empty_detection(cfg, dev)
-    trk_out = tracker.TrackerOutputs(
-        clear_map_boxes=state.tracks.bbox_hist,
-        clear_map_valid=torch.zeros_like(state.tracks.bbox_hist[..., 0], dtype=torch.bool),
-        matched=torch.full((cfg.capacity.max_objects,), -1, dtype=torch.int32, device=dev),
-        spawned=torch.zeros((cfg.capacity.max_objects,), dtype=torch.bool, device=dev),
-    )
-    no_pixels = torch.zeros((H * W,), dtype=torch.bool, device=dev)
-    kf_pts, kf_mask = odo.reg_points_world, odo.reg_mask
+    if not cfg.dynamic_detection:
+        static_pts, static_mask = seg_world, raw_mask
+        det = _empty_detection(cfg, dev)
+        trk_out = tracker.TrackerOutputs(
+            clear_map_boxes=state.tracks.bbox_hist,
+            clear_map_valid=torch.zeros_like(state.tracks.bbox_hist[..., 0], dtype=torch.bool),
+            matched=torch.full((S,), -1, dtype=torch.int32, device=dev),
+            spawned=torch.zeros((S,), dtype=torch.bool, device=dev),
+        )
+        trk_state = state.tracks
+        non_static = dynamic = ground = torch.zeros((H * W,), dtype=torch.bool, device=dev)
+        kf_pts, kf_mask = odo.reg_points_world, odo.reg_mask
+    else:
+        # ---- dynamic perception (applySegmentation, odom.cc:853-919) ----
+        # prev_points is THIS scan's preprocessed cloud (sensor frame), the
+        # cloud whose residuals came out of S2M
+        det = detection.detect(
+            cfg, seg_world, raw_mask, odo_state.prev_points, odo_state.prev_mask,
+            odo.residuals, odo.T, seg_points_sensor=raw_points,
+        )
+        dt = torch.clamp_min(stamp - state.prev_stamp, 1e-3)
+        trk_state, trk_out = tracker.update(cfg.tracking, state.tracks, det.objects, dt)
 
-    odo_state, added = odometry.update_keyframes(cfg, odo_state, kf_pts, kf_mask)
+        # ---- remove UNDEFINED + DYNAMIC points (odom.cc:867-892) ----
+        non_static_slots = tracker.status_detection_mask(trk_state, (UNDEFINED, DYNAMIC), S)
+        dynamic_slots = tracker.status_detection_mask(trk_state, (DYNAMIC,), S)
+        # per-pixel slots back to source points: the identity for the
+        # organized layout, through the projection's point_index otherwise
+        ps_img = det.pixel_slot.reshape(-1)
+        g_img = (det.ground == 1).reshape(-1)
+        n_pts = raw_mask.shape[0]
+        if cfg.detection.organized and n_pts == H * W:
+            ps, ground = ps_img, g_img
+        else:
+            pidx = det.point_index.reshape(-1).long()
+            dst = torch.where(pidx >= 0, pidx, n_pts)  # n_pts: the dropped row
+            ps = torch.full((n_pts + 1,), -1, dtype=torch.int32, device=dev)
+            ps[dst] = ps_img
+            ground = torch.zeros((n_pts + 1,), dtype=torch.bool, device=dev)
+            ground[dst] = g_img
+            ps, ground = ps[:n_pts], ground[:n_pts]
+        in_obj = ps >= 0
+        psc = ps.long().clamp(0, S - 1)
+        non_static = in_obj & non_static_slots[psc]
+        dynamic = in_obj & dynamic_slots[psc]
 
-    new_state = DDLOState(
-        odom=odo_state,
-        tracks=state.tracks,
-        prev_stamp=torch.tensor(float(timestamp), dtype=torch.float32, device=dev),
+        static_mask = raw_mask & ~non_static
+        static_pts = torch.where(static_mask[:, None], seg_world, SENTINEL)
+
+        # ---- re-filter static cloud (odom.cc:901-918): the masks here,
+        # the voxel pass inside update_keyframes' add branch ----
+        pre = cfg.preprocessing
+        sp, m = static_pts, static_mask
+        if pre.downsampling.use:
+            sp, m = filters.decimate(sp, m, H, W, pre.downsampling.row, pre.downsampling.col)
+        if pre.crop_box.use:
+            m = m & filters.crop_box_mask(sp, pre.crop_box.size, odo.pose)
+        kf_pts, kf_mask = sp, m
+
+    # ---- keyframe update on the (dynamic-free) world cloud ----
+    odo_state, added = odometry.update_keyframes(
+        cfg, odo_state, kf_pts, kf_mask, refilter=bool(cfg.dynamic_detection)
     )
+
+    new_state = DDLOState(odom=odo_state, tracks=trk_state, prev_stamp=stamp)
     outputs = DDLOOutputs(
         odom=odo._replace(new_keyframe=added),
         detections=det,
         tracks=trk_out,
-        static_points=seg_world,
-        static_mask=raw_mask,
-        dynamic_mask=no_pixels,
-        non_static_mask=no_pixels,
-        ground_mask=no_pixels,
+        static_points=static_pts,
+        static_mask=static_mask,
+        dynamic_mask=dynamic,
+        non_static_mask=non_static,
+        ground_mask=ground,
         keyframe_added=added,
         new_keyframe_points=kf_pts,
         new_keyframe_mask=kf_mask,

@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity import n, plain_cfg, render_seq, t
+from torch_parity import n, plain_cfg, port_cfg, render_seq, t
 
 from dynamic_direct_lidar_odometry_tpu.core import se3 as jse3
 from dynamic_direct_lidar_odometry_tpu.odometry import preprocess as jprep
@@ -116,7 +116,7 @@ def test_preprocess_matches_jax():
     _, _, scans = render_seq(cfg, 1)
     pts, mask = scans[0]  # raw scan, NaN in invalid pixels
     jp = jprep.preprocess(cfg, jnp.asarray(pts), jnp.asarray(mask))
-    tp = preprocess.preprocess(cfg, t(pts), t(mask))
+    tp = preprocess.preprocess(port_cfg(cfg), t(pts), t(mask))
     np.testing.assert_array_equal(n(tp.mask), np.asarray(jp.mask))
     np.testing.assert_allclose(n(tp.points), np.asarray(jp.points), atol=1e-5, rtol=0)
     assert float(tp.spaciousness_median) == float(jp.spaciousness_median)

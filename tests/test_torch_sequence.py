@@ -1,11 +1,12 @@
-"""``utils.sequence`` renders the benchmark sequence without the JAX
-package's file cache, and its checksum pins the scans bit for bit."""
+"""``utils.sequence`` renders the benchmark sequence through the port's own
+``io.dataset`` with no file cache, and its checksum pins the scans bit
+for bit."""
 
 import copy
 
 import numpy as np
 
-from dynamic_direct_lidar_odometry_tpu.io import dataset
+from dynamic_direct_lidar_odometry_tpu_torch.io import dataset
 from dynamic_direct_lidar_odometry_tpu_torch.utils import sequence
 
 
@@ -15,14 +16,12 @@ def test_steady_sequence_reads_and_writes_no_file(monkeypatch):
     monkeypatch.setattr(
         np, "savez_compressed", lambda *a, **k: touched.append(("save", a))
     )
-    load = dataset.ScanSequence.__dict__["load"]
-    save = dataset.ScanSequence.__dict__["save"]
 
     seq = sequence.steady_state_sequence(2)
 
     assert touched == []
-    assert dataset.ScanSequence.__dict__["load"] is load
-    assert dataset.ScanSequence.__dict__["save"] is save
+    assert not hasattr(dataset.ScanSequence, "load")
+    assert not hasattr(dataset.ScanSequence, "save")
     assert seq.points.shape == (2, 64 * 2048, 3) and seq.mask.shape == (2, 64 * 2048)
     assert seq.gt_poses.shape == (2, 4, 4) and seq.mask.any(axis=1).all()
 

@@ -21,7 +21,7 @@ import pytest
 import torch
 
 from torch_parity import (
-    jax_tpu_paths, n, plain_cfg, port_accelerator_paths, render_seq, rot_err, tpu_cfg,
+    jax_tpu_paths, n, plain_cfg, port_accelerator_paths, port_cfg, render_seq, rot_err, tpu_cfg,
 )
 
 from dynamic_direct_lidar_odometry_tpu import pipeline as jpipe
@@ -44,12 +44,13 @@ def _run_port(cfg, scans, state=None, start=1):
     """Returns per-scan store.valid snapshots, not states: the port
     writes the keyframe store in place, so an earlier state's store
     shows later inserts."""
+    pcfg = port_cfg(cfg)
     if state is None:
-        state = pipeline.init_state(cfg, scans[0][0], scans[0][1], 0.0, device="cpu")
+        state = pipeline.init_state(pcfg, scans[0][0], scans[0][1], 0.0, device="cpu")
     outs, valids = [], []
     for i in range(start, len(scans)):
         pts, m = scans[i]
-        state, out = pipeline.step(cfg, state, pts, m, 0.1 * i)
+        state, out = pipeline.step(pcfg, state, pts, m, 0.1 * i)
         outs.append(out)
         valids.append(n(state.odom.store.valid).copy())
     return valids, outs
@@ -119,15 +120,17 @@ def test_state_bridge_round_trip_and_one_step(plain_run):
 
 
 def test_dynamic_detection_and_sharding_raise(plain_run):
+    """Dynamic detection is ported (init_state accepts it and returns an
+    empty tracker); point-parallel sharding still raises."""
     import dataclasses
 
     cfg, scans, j_states, _ = plain_run
-    dyn = dataclasses.replace(cfg, dynamic_detection=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pipeline.init_state(dyn, scans[0][0], scans[0][1], device="cpu")
+    dyn = port_cfg(dataclasses.replace(cfg, dynamic_detection=True))
+    st = pipeline.init_state(dyn, scans[0][0], scans[0][1], device="cpu")
+    assert not bool(st.tracks.active.any())
     state = interop.state_from_numpy(jax.tree.map(np.asarray, j_states[0]), "cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pipeline.step(cfg, state, scans[1][0], scans[1][1], 0.1, axis_name="pt", pt_size=2)
+        pipeline.step(port_cfg(cfg), state, scans[1][0], scans[1][1], 0.1, axis_name="pt", pt_size=2)
 
 
 @pytest.mark.parametrize("extrinsic", [None, (0.7071068, 0.0, 0.0, -0.7071068)])

@@ -1,18 +1,26 @@
-"""Where a plain-DLO scan's time goes in the PyTorch port, on one GPU.
+"""Where a DDLO scan's time goes in the PyTorch port, on one GPU.
 
-Runs ``bench_config(dynamic_detection=False)`` over the first scans of
-``steady_state_sequence(64)`` through ``pipeline.step`` and reports, for
-the scans after the warm-up:
+Runs ``bench_config()`` (full DDLO; ``--plain`` for plain DLO) over the
+first scans of ``steady_state_sequence(64)`` through ``pipeline.step``
+and reports, for the scans after the warm-up:
 
 - per-stage wall time (host clock around each stage, each closed by a
   ``torch.cuda.synchronize()``): preprocess, covariances, S2S align,
-  hulls + submap selection + gather, S2M align, keyframe update;
+  hulls + submap selection + gather, S2M align; with detection on, the
+  projection (range and residual images), ground removal, CCL
+  (``label_components``), ``segment_objects``, ``pca_bboxes``,
+  ``tracker.update``, the static masks and the re-filter; then the
+  keyframe update;
+- the CCL sweeps and host reads, and the JV assignment's host reads, per
+  scan;
 - from ``torch.profiler`` over the same scans: device-busy time (the
   union of kernel intervals) against the wall time, i.e. the device's
   idle share, the number of kernel launches, and the top kernels by
   device time.
 
     python tools/torch_profile_slice.py --scans 12 --warmup 2
+    python tools/torch_profile_slice.py --backends dense   # DDLO_NN_IMPL/KNN_IMPL=pallas
+    python tools/torch_profile_slice.py --plain
 
 Three replays of the same scans from a fresh state: plain (the wall
 time), staged (stage timing adds synchronizations, so its own total is
@@ -37,8 +45,14 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scans", type=int, default=12)
     ap.add_argument("--warmup", type=int, default=2)
+    ap.add_argument("--plain", action="store_true", help="plain DLO (no detection/tracking)")
+    ap.add_argument("--backends", choices=("default", "dense"), default="default",
+                    help="dense: DDLO_NN_IMPL=pallas and DDLO_KNN_IMPL=pallas")
     args = ap.parse_args(argv)
     sys.path.insert(0, _ROOT)
+    if args.backends == "dense":
+        os.environ["DDLO_NN_IMPL"] = "pallas"
+        os.environ["DDLO_KNN_IMPL"] = "pallas"
 
     import torch
 
@@ -46,14 +60,17 @@ def main(argv=None) -> int:
         print("torch_profile_slice: no CUDA device", file=sys.stderr)
         return 1
 
-    from dynamic_direct_lidar_odometry_tpu import config
-    from dynamic_direct_lidar_odometry_tpu_torch import pipeline
+    import subprocess
+
+    from dynamic_direct_lidar_odometry_tpu_torch import config, pipeline
+    from dynamic_direct_lidar_odometry_tpu_torch.detection import detection
     from dynamic_direct_lidar_odometry_tpu_torch.odometry import odometry
+    from dynamic_direct_lidar_odometry_tpu_torch.ops import hungarian, nn_cuda, segmentation
     from dynamic_direct_lidar_odometry_tpu_torch.utils import sequence
 
     dev = torch.device("cuda", 0)
     sync = torch.cuda.synchronize
-    cfg = config.bench_config(dynamic_detection=False)
+    cfg = config.bench_config(dynamic_detection=not args.plain)
     seq = sequence.steady_state_sequence(64)
     stages = collections.defaultdict(float)
     counting = [False]
@@ -88,6 +105,17 @@ def main(argv=None) -> int:
         (odometry.kf, "select_submap", "select_submap"),
         (odometry.kf, "gather_submap", "gather_submap"),
         (odometry, "update_keyframes", "keyframe_update"),
+        (detection.projection, "project_organized", "projection"),
+        (detection.projection, "project_spherical", "projection"),
+        (detection.projection, "project_residuals", "projection"),
+        (detection.segmentation, "ground_removal", "ground_removal"),
+        (detection.segmentation, "label_components", "ccl"),
+        (detection.segmentation, "segment_objects", "segment_objects"),
+        (detection.bbox_ops, "pca_bboxes", "pca_bboxes"),
+        (pipeline.tracker, "update", "tracker_update"),
+        (pipeline.tracker, "status_detection_mask", "static_masks"),
+        (pipeline.filters, "decimate", "refilter"),
+        (pipeline.filters, "crop_box_mask", "refilter"),
     ]
     originals = [(m, n, getattr(m, n)) for m, n, _ in patches]
     for m, n, label in patches:
@@ -105,6 +133,9 @@ def main(argv=None) -> int:
             state, _ = pipeline.step(cfg, state, seq.points[i], seq.mask[i], float(seq.stamps[i]))
         sync()
         counting[0] = staged
+        segmentation.SWEEPS.clear()
+        hungarian.HOST_READS.clear()
+        nn_cuda.LAUNCHES.clear()
         ctx = torch.profiler.profile(activities=acts) if profiled else contextlib.nullcontext()
         t0 = time.perf_counter()
         with ctx as prof:
@@ -115,14 +146,28 @@ def main(argv=None) -> int:
         return (time.perf_counter() - t0) * 1e3 / len(scans), prof
 
     plain_ms, _ = replay()
+    per_scan = lambda c: {k: v / len(scans) for k, v in sorted(c.items())}  # noqa: E731
+    counters = dict(
+        ccl_per_scan=per_scan(segmentation.SWEEPS),
+        jv_host_reads_per_scan=per_scan(hungarian.HOST_READS),
+        nn_kernel_launches_per_scan=per_scan(nn_cuda.LAUNCHES),
+    )
     staged_ms, _ = replay(staged=True)
     for m, n, fn in originals:
         setattr(m, n, fn)
     _, prof = replay(profiled=True)
 
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    ).stdout.strip()
     report = dict(
         device=torch.cuda.get_device_name(0),
+        card=card,
+        config="plain DLO" if args.plain else "DDLO",
+        backends=args.backends,
         scans=len(scans),
+        **counters,
         stage_ms_per_scan={k: v * 1e3 / len(scans) for k, v in sorted(stages.items())},
         wall_ms_per_scan=plain_ms,
         staged_wall_ms_per_scan=staged_ms,
