@@ -15,9 +15,17 @@ Phases, in order; any failure exits non-zero and prints no result:
    sparse 1-NN (S2M 16,384 x 65,536 at r = 2 and 6, S2S 16,384 x 16,384
    at r = 1), dense 1-NN (16,384 x 16,384 and 16,384 x 65,536), lane-class
    k-NN (16,384 x 16,384 at k = 10 and 20, dense and pruned at r = 5),
-   plus sentinel / non-multiple cases. Pass: identical index and distance
-   on every row (the sparse 1-NN: on every in-radius row, out-of-radius
-   rows >= r^2 in both). Times: CUDA events, median of 20.
+   plus sentinel / non-multiple cases, a tie case (every target point
+   four times, the copies straddling the 1-NN kernels' split boundaries)
+   and a long-list case (one query tile whose box spans the submap).
+   Pass: identical index and distance on every row, in radius or not.
+   Times (median of 20 calls): ``ms``, the device time of every operation
+   one wrapper call puts on the card (``torch.profiler``: the 1-NN key
+   fill and kernel, summed per call); ``kernel_ms``, the kernel's alone;
+   ``call_ms``, the wrapper call between CUDA events (host time
+   included); the plain version's (CUDA events). Also printed: each
+   kernel's ptxas registers and spills, and the device operations one
+   1-NN call costs (``torch.profiler``).
 4. Plain DLO (``bench_config(dynamic_detection=False)``) on the first 16
    scans of ``steady_state_sequence(64)`` (rendered afresh, checked
    against the committed checksum) through ``pipeline.init_state`` /
@@ -52,6 +60,7 @@ import argparse
 import contextlib
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -79,11 +88,14 @@ KERNELS = {
                                replaces="dynamic_direct_lidar_odometry_tpu/ops/nn_pallas.py:356"),
 }
 # the bound: FP32 work at the H100 SXM's non-tensor issue rate (67 TFLOP/s
-# counts an FMA as 2; these kernels issue no FMA: --fmad=false), against
-# each input read once and each output written once at 3.35 TB/s
+# counts an FMA as 2; the function rounds every operation, so none fuses:
+# --fmad=false), against each input read once and each output written
+# once at 3.35 TB/s
 FP32_ISSUE_PER_S = 67e12 / 2
 HBM_BYTES_PER_S = 3.35e12
-OPS_PER_PAIR = 10  # 3 sub, 3 mul, 2 add, compare, select
+# 3 sub, 3 mul, 2 add per pair on the FP32 pipe; the minimum (compare,
+# select) runs on the ALU pipe beside it and is not counted
+OPS_PER_PAIR = 8
 
 
 class SmokeFailure(Exception):
@@ -117,6 +129,44 @@ def cuda_ms(fn, reps: int = 20) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def device_times(fn, kernel: str, reps: int = 20) -> dict:
+    """What ``reps`` calls of ``fn`` put on the card, from one
+    ``torch.profiler`` session (CUPTI's timestamps: the host's time
+    between launches is not counted). A call is the kernel whose name
+    contains ``kernel`` and the operations since the previous one (a
+    1-NN call's key fill); the profiler may miss the session's first
+    operation, so medians are taken. ``ms``: the median per-call sum;
+    ``kernel_ms``: the kernel's median; ``device_ops_per_call``: the most
+    operations in a call. None values when the profiler shows no such
+    kernel (tried three times)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        ev = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA)
+        calls, kern, pending = [], [], []
+        for a, b, name in ev:
+            pending.append((b - a, name))
+            if kernel in name:
+                calls.append(pending)
+                kern.append(b - a)
+                pending = []
+        if kern:
+            return dict(
+                ms=statistics.median(sum(t for t, _ in c) for c in calls) / 1e3,
+                kernel_ms=statistics.median(kern) / 1e3,
+                device_ops_per_call=max(len(c) for c in calls),
+                device_op_names=sorted({n[:60] for c in calls for _, n in c}),
+            )
+    return dict(ms=None, kernel_ms=None, device_ops_per_call="not measured", device_op_names=[])
 
 
 def bound_ms(pairs: float, bytes_moved: float) -> tuple:
@@ -229,11 +279,80 @@ def kernel_inputs(cfg, seq, ref_poses, device):
     return query, s2s_target, s2m_target, odd_q, odd_t
 
 
-def _record(kernel, case, Q, T, err, identical, pairs, nbytes, ms, plain_ms, cdist_ms, **extra):
+def stress_inputs(query, s2m_target):
+    """Two stress inputs for the 1-NN kernels at the S2M shape. Ties: a
+    target whose every point appears four times (copies 16,384 rows
+    apart, two of them rotated by 77 and -300 rows, so equal distances
+    straddle stage, chunk and split boundaries: every query has exact
+    ties, which go to the lowest index). Long list: the submap's real
+    points repeated to fill all 65,536 rows and sorted by x (compact
+    chunks), against a query cloud whose first tile spans the submap's
+    box, so that tile's list holds every chunk while the others hold a
+    few."""
+    import torch
+
+    a = s2m_target[:16384]
+    ties = torch.cat([a, a.roll(77, 0), a, a.roll(-300, 0)]).contiguous()
+    real = s2m_target[torch.all(s2m_target < 5.0e5, dim=1)]
+    reps = -(-s2m_target.shape[0] // real.shape[0])
+    long_t = real.repeat(reps, 1)[: s2m_target.shape[0]]
+    long_t = long_t[torch.argsort(long_t[:, 0], stable=True)].contiguous()
+    long_q = query.clone()
+    long_q[0] = real.amin(dim=0)
+    long_q[1] = real.amax(dim=0)
+    return ties, long_q, long_t
+
+
+PTXAS_NAMES = {"nn1_kernelILb0": "nn1_sparse", "nn1_kernelILb1": "nn1_dense",
+               "knn_classes_kernelILb0": "knn_classes", "knn_classes_kernelILb1": "knn_classes_sparse"}
+
+
+def ptxas_report(log: str) -> dict:
+    """Registers and spill bytes of each kernel, from nvcc's ``-Xptxas -v``
+    output."""
+    out, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = next((v for k, v in PTXAS_NAMES.items() if k in m.group(1)), m.group(1))
+            out[cur] = {}
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            out[cur]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[cur]["registers"] = int(m.group(1))
+    return out
+
+
+KERNEL_NAMES = {"nn1_sparse": "nn1_kernel<false>", "nn1_dense": "nn1_kernel<true>",
+                "knn_classes": "knn_classes_kernel<false>",
+                "knn_classes_sparse": "knn_classes_kernel<true>"}
+
+
+def _record(kernel, case, Q, T, err, identical, pairs, nbytes, call, plain_ms, cdist_ms, **extra):
+    """One phase-3 case: ``ms`` is the device time of every operation one
+    wrapper call puts on the card (profiler; the 1-NN key fill and the
+    kernel), ``kernel_ms`` the kernel's alone, ``call_ms`` the wrapper
+    call between CUDA events (host time included); ``counted_per_call``
+    the ``LAUNCHES`` counts one call adds."""
+    from dynamic_direct_lidar_odometry_tpu_torch.ops import nn_cuda
+
     b, by = bound_ms(pairs, nbytes)
+    dev = device_times(call, KERNEL_NAMES[kernel])
+    call_ms = cuda_ms(call)
+    timer = "profiler"
+    if dev["ms"] is None:
+        dev["ms"], timer = call_ms, "events"
+    before = dict(nn_cuda.LAUNCHES)
+    call()
+    counted = {k: v - before.get(k, 0) for k, v in nn_cuda.LAUNCHES.items() if v != before.get(k, 0)}
     rec = dict(kernel=kernel, case=case, Q=Q, T=T, max_abs_err=err, all_rows_identical=identical,
-               pairs=pairs, bound_ms=b, bound_by=by, ms=ms, plain_ms=plain_ms,
-               cdist_ms=cdist_ms, **extra)
+               pairs=pairs, bound_ms=b, bound_by=by, timer=timer, call_ms=call_ms,
+               plain_ms=plain_ms, cdist_ms=cdist_ms, counted_per_call=counted, **dev, **extra)
     print("kernel check " + json.dumps(rec), flush=True)
     return rec
 
@@ -259,7 +378,8 @@ def _cdist_tiles(query, target, q_tile, cols_of_tile, k=None):
 
 
 def check_sparse(name, query, target, radius):
-    """The sparse 1-NN kernel against its plain version on the same CSR lists."""
+    """The sparse 1-NN kernel against its plain version on the same CSR
+    lists: identical index and distance on every row, in radius or not."""
     import torch
 
     from dynamic_direct_lidar_odometry_tpu_torch.core.cloud import pad_rows
@@ -272,13 +392,10 @@ def check_sparse(name, query, target, radius):
     args = (q, prep.tt, counts, lists, q_tile, t_chunk)
     ik, dk = nn_cuda.nn1_sparse_chunks(*args)
     ir, dr = nn_cuda.nn1_sparse_reference(*args)
-    ik, dk, ir, dr = (x[:Q].cpu().numpy() for x in (ik, dk, ir, dr))
-    r2 = radius * radius
-    inr = dr < r2
-    err = float(np.max(np.abs(dk[inr] - dr[inr]), initial=0.0))
-    check(bool(np.all(ik[inr] == ir[inr])), f"{name}: kernel index differs in radius")
-    check(err == 0.0, f"{name}: kernel distance differs by {err} in radius")
-    check(bool(np.all(dk[~inr] >= r2)), f"{name}: kernel reports an out-of-radius query inside r")
+    torch.cuda.synchronize()
+    same = bool(torch.equal(ik, ir) and torch.equal(dk, dr))
+    err = float((dk - dr).abs().max())
+    check(same, f"nn1_sparse {name}: kernel differs from its plain version (max |d| {err})")
     pairs = float(counts.sum()) * q_tile * t_chunk
     cols = [
         (lists[i, :c, None].long() * t_chunk + torch.arange(t_chunk, device=q.device)).reshape(-1)
@@ -286,13 +403,14 @@ def check_sparse(name, query, target, radius):
     ]
     tpad = prep.tt.T.contiguous()
     return _record(
-        "nn1_sparse", name, Q, target.shape[0], err, bool(np.all(ik == ir) and np.all(dk == dr)),
+        "nn1_sparse", name, Q, target.shape[0], err, same,
         pairs, (q.numel() + prep.tt.numel()) * 4 + 8 * Q,
-        cuda_ms(lambda: nn_cuda.nn1_sparse_chunks(*args)),
+        lambda: nn_cuda.nn1_sparse_chunks(*args),
         cuda_ms(lambda: nn_cuda.nn1_sparse_reference(*args)),
         _cdist_tiles(q, tpad, q_tile, cols),
-        radius=radius, in_radius=int(inr.sum()),
+        radius=radius, in_radius=int((dr[:Q] < radius * radius).sum()),
         active_chunk_share=float(counts.float().mean()) / lists.shape[1],
+        max_tile_chunks=int(counts.max()),
     )
 
 
@@ -312,7 +430,7 @@ def check_dense(name, query, target):
     return _record(
         "nn1_dense", name, Q, T, err, same, float(Q) * T,
         (query.numel() + target.numel()) * 4 + 8 * Q,
-        cuda_ms(lambda: nn_cuda.nn1_dense_chunks(q, tt, t_chunk)),
+        lambda: nn_cuda.nn1_dense_chunks(q, tt, t_chunk),
         cuda_ms(lambda: nn_cuda.nn1_dense_reference(q, tt)),
         _cdist_tiles(q, tt.T.contiguous(), 1024, [None] * (q.shape[0] // 1024)),
     )
@@ -350,7 +468,7 @@ def check_classes(name, query, target, k, prune_radius=None):
     return _record(
         kernel, name, Q, T, err, same, pairs,
         (query.numel() + target.numel()) * 4 + 8 * Q * k,
-        cuda_ms(lambda: nn_cuda.knn_classes_chunks(*args)),
+        lambda: nn_cuda.knn_classes_chunks(*args),
         cuda_ms(lambda: nn_cuda.knn_classes_reference(*args)),
         _cdist_tiles(q, t, q_tile, cols, k=k), k=k, prune_radius=prune_radius,
     )
@@ -464,6 +582,10 @@ def main(argv=None) -> int:
         print(f"build {name}: {b.path.name} (nvcc {b.seconds:.2f} s)", flush=True)
         if b.log:
             print(b.log.strip(), flush=True)
+    ptxas = {}
+    for b in built.values():
+        ptxas.update(ptxas_report(b.log))
+    print("ptxas " + json.dumps(ptxas), flush=True)
 
     ref_dlo, ref_ddlo = np.load(GOLDEN_DLO), np.load(GOLDEN_DDLO)
     n = int(ref_ddlo["n_scans"])
@@ -484,6 +606,7 @@ def main(argv=None) -> int:
     records = {}
     if 3 in phases:
         query, s2s_t, s2m_t, odd_q, odd_t = kernel_inputs(cfg_dlo, seq, ref_dlo["poses"], dev)
+        ties_t, long_q, long_t = stress_inputs(query, s2m_t)
         s2m_r = cfg.gicp.s2m.max_correspondence_distance
         s2s_r = cfg.gicp.s2s.max_correspondence_distance
         k = cfg.gicp.s2s.k_correspondences
@@ -492,9 +615,12 @@ def main(argv=None) -> int:
             check_sparse("s2m_residual", query, s2m_t, 3.0 * s2m_r),
             check_sparse("s2s", query, s2s_t, s2s_r),
             check_sparse("sentinels_nonmultiple", odd_q, odd_t, s2m_r),
+            check_sparse("s2m_ties", query, ties_t, s2m_r),
+            check_sparse("s2m_long_list", long_q, long_t, s2m_r),
             check_dense("s2m_16k_x_64k", query, s2m_t),
             check_dense("s2s_16k_x_16k", query, s2s_t),
             check_dense("sentinels_nonmultiple", odd_q, odd_t),
+            check_dense("ties_16k_x_64k", query, ties_t),
             check_classes(f"cov_k{k}", query, query, k),
             check_classes("cov_k20", query, query, 20),
             check_classes("sentinels_nonmultiple", odd_q, odd_q[: odd_q.shape[0] - 100], k),
@@ -597,9 +723,12 @@ def main(argv=None) -> int:
         kernels.append(dict(
             name=name, route="cuda", **meta, launches=launches[name],
             max_abs_err=max(r["max_abs_err"] for r in recs),
-            ms=main_case["ms"], plain_ms=main_case["plain_ms"],
+            ms=main_case["ms"], timer=main_case["timer"], kernel_ms=main_case["kernel_ms"],
+            call_ms=main_case["call_ms"],
+            plain_ms=main_case["plain_ms"],
             bound_ms=main_case["bound_ms"], bound_by=main_case["bound_by"],
             library_ms=None, cdist_ms=main_case["cdist_ms"], case=main_case["case"],
+            **ptxas.get(name, {}),
         ))
     print(card)  # name, power.limit exactly as nvidia-smi prints them
     print(json.dumps({"kernels": kernels}))

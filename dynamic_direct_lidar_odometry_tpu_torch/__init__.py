@@ -9,8 +9,9 @@ so each counterpart is easy to find, and is held against it by the
 - Plain functions on tensors; state is ``NamedTuple``s of tensors whose
   field names match the JAX package's. The system has no learned
   parameters, so there is no ``nn.Module``.
-- The device is explicit (``init_state(..., device=)``); there is no
-  global default device.
+- The entry points run on the card: ``init_state(..., device="cuda")`` by
+  default, which raises on a host without one; the tests and host runs
+  pass ``device="cpu"``. There is no global default device.
 - Every Pallas kernel of the JAX package is a hand-written CUDA kernel
   under ``csrc/`` (see ``ops/nn_cuda.py``). On CPU tensors the port takes
   the JAX CPU paths; on CUDA tensors it takes the JAX TPU paths.

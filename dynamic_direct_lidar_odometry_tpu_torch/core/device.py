@@ -16,3 +16,16 @@ import torch
 
 def on_accelerator(t: torch.Tensor) -> bool:
     return t.is_cuda
+
+
+def resolve(device="cuda") -> torch.device:
+    """The device an entry point builds its state on: the card unless the
+    caller asks for another. Asking for the card on a host without one
+    raises; nothing falls back to the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the port runs on the card by default; "
+            "pass device='cpu' to run on the host"
+        )
+    return dev

@@ -20,6 +20,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from dynamic_direct_lidar_odometry_tpu_torch.core import device as device_mod
 from dynamic_direct_lidar_odometry_tpu_torch.core.cloud import SENTINEL
 
 _INF = 3.0e12
@@ -39,9 +40,10 @@ class KeyframeStore(NamedTuple):
         return self.positions.shape[0]
 
 
-def empty_store(max_keyframes: int, max_points: int, *, device) -> KeyframeStore:
+def empty_store(max_keyframes: int, max_points: int, *, device="cuda") -> KeyframeStore:
     K, P = max_keyframes, max_points
     f32 = torch.float32
+    device = device_mod.resolve(device)
     return KeyframeStore(
         positions=torch.zeros((K, 3), dtype=f32, device=device),
         quats=torch.tensor([1.0, 0, 0, 0], dtype=f32, device=device).repeat(K, 1),

@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from dynamic_direct_lidar_odometry_tpu_torch.config import DDLOConfig
+from dynamic_direct_lidar_odometry_tpu_torch.core import device as device_mod
 from dynamic_direct_lidar_odometry_tpu_torch.core import se3
 from dynamic_direct_lidar_odometry_tpu_torch.core.cloud import SENTINEL
 from dynamic_direct_lidar_odometry_tpu_torch.odometry import keyframes as kf
@@ -90,11 +91,13 @@ def init_state(
     raw_mask,
     T0=None,
     *,
-    device,
+    device="cuda",
 ) -> OdomState:
     """Initialize from the first scan: it becomes the S2S target and the
-    first keyframe. ``T0`` seeds the pose (identity by default)."""
-    dev = torch.device(device)
+    first keyframe. ``T0`` seeds the pose (identity by default). The
+    state lives on ``device``: the card unless the caller asks for the
+    CPU (without a card the default raises)."""
+    dev = device_mod.resolve(device)
     raw_points = torch.as_tensor(raw_points, dtype=torch.float32, device=dev)
     raw_mask = torch.as_tensor(raw_mask, dtype=torch.bool, device=dev)
     if T0 is None:

@@ -42,13 +42,32 @@ def plane_covariances(
         # clamp like a JAX gather: a sentinel query's neighbors may be
         # padded target rows (its covariance is masked to identity)
         neigh = tgt[idx.long().clamp_max(tgt.shape[0] - 1)]  # (N, k, 3)
-        centered = neigh - neigh.mean(dim=1, keepdim=True)
-        # cov = X^T X / k, the reference's normalization
-        cov = torch.matmul(centered.transpose(1, 2), centered) / k
+        cov = neighborhood_covariance(neigh)
 
     cov_reg = regularize_plane(cov)
     eye = torch.eye(3, dtype=points.dtype, device=points.device)
     return torch.where(mask[:, None, None], cov_reg, eye)
+
+
+def neighborhood_covariance(neigh: torch.Tensor) -> torch.Tensor:
+    """``X^T X / k`` of each (k, 3) neighborhood centered on its mean (the
+    reference's normalization), rounded in the order the JAX package's
+    jitted CPU code takes: the mean as a sequential sum over k times the
+    f32 ``1/k`` (XLA turns a division by a constant into that product),
+    the covariance as k sequential fused multiply-adds of the outer
+    products, then times ``1/k``. A product of two f32 is exact in f64,
+    so each multiply-add is the f64 product plus the accumulator, rounded
+    to f32."""
+    k = neigh.shape[1]
+    s = neigh[:, 0]
+    for j in range(1, k):
+        s = s + neigh[:, j]
+    centered = (neigh - (s * (1.0 / k))[:, None, :]).double()
+    acc = torch.zeros(neigh.shape[0], 3, 3, dtype=torch.float32, device=neigh.device)
+    for j in range(k):
+        c = centered[:, j]
+        acc = torch.addcmul(acc.double(), c[:, :, None], c[:, None, :]).float()
+    return acc * (1.0 / k)
 
 
 def _window_self_covariances(
@@ -93,15 +112,17 @@ def _window_self_covariances(
 def smallest_eigvec_sym3(A: torch.Tensor) -> torch.Tensor:
     """Unit eigenvector of the smallest eigenvalue of symmetric (..., 3, 3)
     by the closed form (Cardano eigenvalue + largest cross product of the
-    rows of ``A - lmin I``); near-isotropic matrices fall back to e_z."""
+    rows of ``A - lmin I``); near-isotropic matrices fall back to e_z.
+    Divisions by a constant are products with its f32 reciprocal, as XLA
+    rewrites them in the JAX package."""
     a00, a01, a02 = A[..., 0, 0], A[..., 0, 1], A[..., 0, 2]
     a11, a12, a22 = A[..., 1, 1], A[..., 1, 2], A[..., 2, 2]
-    q = (a00 + a11 + a22) / 3.0
+    q = (a00 + a11 + a22) * (1.0 / 3.0)
     b00, b11, b22 = a00 - q, a11 - q, a22 - q
     p2 = (
         b00 * b00 + b11 * b11 + b22 * b22
         + 2.0 * (a01 * a01 + a02 * a02 + a12 * a12)
-    ) / 6.0
+    ) * (1.0 / 6.0)
     p = torch.sqrt(torch.clamp_min(p2, 1e-30))
     detB = (
         b00 * (b11 * b22 - a12 * a12)
@@ -109,7 +130,7 @@ def smallest_eigvec_sym3(A: torch.Tensor) -> torch.Tensor:
         + a02 * (a01 * a12 - b11 * a02)
     )
     r = torch.clamp(detB / (2.0 * p * p * p), -1.0, 1.0)
-    phi = torch.arccos(r) / 3.0
+    phi = torch.arccos(r) * (1.0 / 3.0)
     lmin = q + 2.0 * p * torch.cos(phi + 2.0 * math.pi / 3.0)
 
     c00, c11, c22 = a00 - lmin, a11 - lmin, a22 - lmin

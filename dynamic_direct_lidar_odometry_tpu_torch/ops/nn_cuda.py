@@ -18,11 +18,16 @@ sparse``            kernel``                    ``ddlo_knn_classes_sparse``
 ==================  ==========================  ============================
 
 As in the JAX package, padding, transposes, AABBs and the ascending CSR
-chunk lists are built in plain torch around the kernels; the wrappers
-(:func:`nn1_sparse_chunks`, :func:`nn1_dense_chunks`,
-:func:`knn_classes_chunks`) launch the kernel for CUDA tensors (and count
-the launch) or raise; they take the plain version only for tensors that
-lie on the CPU. The entry points mirror the JAX ones:
+chunk lists are built in plain torch around the kernels. The 1-NN
+kernels split each query block's sweep across the card and merge the
+partial (distance, index) pairs with an ``atomicMin`` of a packed 64-bit
+key (:data:`KEY_INIT`, :func:`unpack_keys`); the merge is exact because a
+strict-``<`` sweep over ascending indices is the lexicographic minimum
+of (distance, index). The wrappers (:func:`nn1_sparse_chunks`,
+:func:`nn1_dense_chunks`, :func:`knn_classes_chunks`) launch the kernel
+for CUDA tensors (and count the launch) or raise; they take the plain
+version only for tensors that lie on the CPU. The entry points mirror
+the JAX ones:
 :func:`nn1_sparse` / :func:`nn1_sparse_prepared`, :func:`nn1_dense`
 (``nn1_pallas``) and :func:`knn_approx` (``knn_approx_pallas``).
 """
@@ -31,6 +36,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import struct
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
@@ -43,6 +49,14 @@ _BIG = 3.0e12
 
 # kernel launches by name, counted by the wrappers where they launch
 LAUNCHES: collections.Counter = collections.Counter()
+
+# the 1-NN kernels' merge key: (bits(d) << 32) | j, min-merged; the
+# initial one is (3e12, 0)
+KEY_INIT = struct.unpack("<I", struct.pack("<f", _BIG))[0] << 32
+# grid of the 1-NN kernels: this many waves of resident blocks if every
+# query block had work (a sparse call has work in a few tiles only)
+_WAVES = 8
+_RESIDENT: Dict[int, int] = {}
 
 
 class SparseTarget(NamedTuple):
@@ -129,9 +143,11 @@ def build() -> Dict[str, _cuda_build.Built]:
     built = _cuda_build.load_all(_SOURCES)
     P, I = ctypes.c_void_p, ctypes.c_int
     for lib, fn, args in (
-        ("nn1_sparse", "ddlo_nn1_sparse", [P] * 4 + [I] * 5 + [P] * 3),
-        ("nn1_sparse", "ddlo_nn1_dense", [P] * 2 + [I] * 3 + [P] * 3),
-        ("nn1_sparse", "ddlo_nn1_sparse_threads", []),
+        ("nn1_sparse", "ddlo_nn1_sparse", [P] * 4 + [I] * 6 + [P] * 2),
+        ("nn1_sparse", "ddlo_nn1_dense", [P] * 2 + [I] * 3 + [P] * 2),
+        ("nn1_sparse", "ddlo_nn1_rows_per_block", []),
+        ("nn1_sparse", "ddlo_nn1_stage_rows", []),
+        ("nn1_sparse", "ddlo_nn1_resident_blocks", []),
         ("knn_classes", "ddlo_knn_classes", [P] * 2 + [I] * 4 + [P] * 3),
         ("knn_classes", "ddlo_knn_classes_sparse", [P] * 4 + [I] * 6 + [P] * 3),
         ("knn_classes", "ddlo_knn_classes_queries_per_block", []),
@@ -177,27 +193,75 @@ def _run(fn, name, *args):
     LAUNCHES[name] += 1
 
 
+def _resident_blocks(lib, device: torch.device) -> int:
+    """Blocks of the 1-NN kernel resident on ``device`` at once (a host
+    query of the CUDA runtime, cached per device: no device read)."""
+    key = device.index if device.index is not None else torch.cuda.current_device()
+    if key not in _RESIDENT:
+        with torch.cuda.device(key):
+            n = lib.ddlo_nn1_resident_blocks()
+        if n <= 0:
+            raise RuntimeError(f"nn1: occupancy query failed on cuda:{key}")
+        _RESIDENT[key] = n
+    return _RESIDENT[key]
+
+
+def nn1_splits(units: int, query_blocks: int, resident: int) -> int:
+    """Splits of each query block's work (grid y) from static shapes only:
+    enough blocks for about ``_WAVES`` waves of ``resident`` blocks, at
+    most one split per ``units`` (target rows / stage rows) and the
+    grid's y limit. The kernel cuts each tile's own work (from the device
+    counts) into this many runs."""
+    want = -(-_WAVES * resident // max(query_blocks, 1))
+    return max(1, min(units, want, 65535))
+
+
+def unpack_keys(keys: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(Qp,) int64 packed keys ``(bits(d) << 32) | j`` -> (idx int32, sqd
+    f32), the two 32-bit halves of each key as views (little-endian: the
+    index is the low word); no copy, no launch."""
+    halves = keys.view(torch.int32).view(-1, 2)
+    return halves[:, 0], halves[:, 1].view(torch.float32)
+
+
+def _nn1_launch(lib, fn, name, q, tt, units, args):
+    """One 1-NN call on the card: the merge keys filled with
+    :data:`KEY_INIT` (one fill, counted as ``nn1_key_fill``), the kernel
+    over (query blocks) x :func:`nn1_splits` blocks, the result as the
+    keys' halves. ``units``: a full list's target rows over the stage
+    rows (the most work one query block can have)."""
+    if tt.data_ptr() % 16:
+        raise ValueError("nn1: tt must be 16-byte aligned (cp.async staging)")
+    Qp = q.shape[0]
+    keys = torch.empty(0, dtype=torch.int64, device=q.device)
+    if Qp:
+        blocks = -(-Qp // lib.ddlo_nn1_rows_per_block())
+        splits = nn1_splits(units, blocks, _resident_blocks(lib, q.device))
+        keys = torch.full((Qp,), KEY_INIT, dtype=torch.int64, device=q.device)
+        LAUNCHES["nn1_key_fill"] += 1
+        _run(fn, name, *args, splits, keys)
+    return unpack_keys(keys)
+
+
 def _launch(q, tt, counts, lists, q_tile, t_chunk):
     _check_inputs(q, tt, counts, lists)
     lib = build()["nn1_sparse"].lib
-    threads = lib.ddlo_nn1_sparse_threads()
+    rows, stage = lib.ddlo_nn1_rows_per_block(), lib.ddlo_nn1_stage_rows()
     Qp, Tp = q.shape[0], tt.shape[1]
     n_tiles, n_chunks = lists.shape
     if (
-        q_tile % threads or Qp != n_tiles * q_tile or Tp != n_chunks * t_chunk
-        or counts.shape[0] != n_tiles
+        q_tile % rows or t_chunk % stage or Qp != n_tiles * q_tile
+        or Tp != n_chunks * t_chunk or counts.shape[0] != n_tiles
     ):
         raise ValueError(
             f"nn1_sparse: inconsistent shapes q={tuple(q.shape)} "
             f"tt={tuple(tt.shape)} counts={tuple(counts.shape)} "
-            f"lists={tuple(lists.shape)} q_tile={q_tile} t_chunk={t_chunk}"
+            f"lists={tuple(lists.shape)} q_tile={q_tile} (multiple of {rows}) "
+            f"t_chunk={t_chunk} (multiple of {stage})"
         )
-    out_idx = torch.empty(Qp, dtype=torch.int32, device=q.device)
-    out_d = torch.empty(Qp, dtype=torch.float32, device=q.device)
-    if Qp:
-        _run(lib.ddlo_nn1_sparse, "nn1_sparse", q, tt, counts, lists,
-             Qp, Tp, n_chunks, q_tile, t_chunk, out_idx, out_d)
-    return out_idx, out_d
+    return _nn1_launch(lib, lib.ddlo_nn1_sparse, "nn1_sparse", q, tt,
+                       n_chunks * (t_chunk // stage),
+                       (q, tt, counts, lists, Qp, Tp, n_chunks, q_tile, t_chunk))
 
 
 def nn1_sparse_chunks(
@@ -209,8 +273,10 @@ def nn1_sparse_chunks(
     t_chunk: int,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The kernel's wrapper: (idx (Qp,) int32, sqd (Qp,) f32) over padded
-    query tiles. CUDA tensors launch ``csrc/nn1_sparse.cu`` (or raise);
-    CPU tensors run :func:`nn1_sparse_reference`."""
+    query tiles. CUDA tensors launch ``csrc/nn1_sparse.cu`` (or raise):
+    one key fill and one kernel launch, no host read, and the outputs are
+    the halves of the merge keys (:func:`unpack_keys`). CPU tensors run
+    :func:`nn1_sparse_reference`."""
     if q.is_cuda:
         return _launch(q, tt, counts, lists, q_tile, t_chunk)
     return nn1_sparse_reference(q, tt, counts, lists, q_tile, t_chunk)
@@ -299,24 +365,21 @@ def nn1_dense_chunks(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The dense kernel's wrapper: (idx (Qp,) int32, sqd (Qp,) f32) of
     every padded query row against the whole padded (3, Tp) target. CUDA
-    tensors launch ``ddlo_nn1_dense`` (or raise); CPU tensors run
+    tensors launch ``ddlo_nn1_dense`` (or raise), as the sparse wrapper
+    does: a key fill and the kernel; CPU tensors run
     :func:`nn1_dense_reference`."""
     if not q.is_cuda:
         return nn1_dense_reference(q, tt)
     _check_inputs(q, tt)
     lib = build()["nn1_sparse"].lib
+    stage = lib.ddlo_nn1_stage_rows()
     Qp, Tp = q.shape[0], tt.shape[1]
-    if Qp % lib.ddlo_nn1_sparse_threads() or Tp % t_chunk or Tp == 0:
+    if Tp % t_chunk or t_chunk % stage or Tp == 0:
         raise ValueError(
-            f"nn1_dense: q rows {Qp} must be a multiple of "
-            f"{lib.ddlo_nn1_sparse_threads()} and target columns {Tp} a "
-            f"positive multiple of t_chunk={t_chunk}"
+            f"nn1_dense: target columns {Tp} must be a positive multiple of "
+            f"t_chunk={t_chunk}, itself a multiple of {stage}"
         )
-    out_idx = torch.empty(Qp, dtype=torch.int32, device=q.device)
-    out_d = torch.empty(Qp, dtype=torch.float32, device=q.device)
-    if Qp:
-        _run(lib.ddlo_nn1_dense, "nn1_dense", q, tt, Qp, Tp, t_chunk, out_idx, out_d)
-    return out_idx, out_d
+    return _nn1_launch(lib, lib.ddlo_nn1_dense, "nn1_dense", q, tt, Tp // stage, (q, tt, Qp, Tp))
 
 
 def nn1_dense(

@@ -21,6 +21,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from dynamic_direct_lidar_odometry_tpu_torch.config import DDLOConfig
+from dynamic_direct_lidar_odometry_tpu_torch.core import device as device_mod
 from dynamic_direct_lidar_odometry_tpu_torch.core import se3
 from dynamic_direct_lidar_odometry_tpu_torch.core.cloud import SENTINEL
 from dynamic_direct_lidar_odometry_tpu_torch.detection import detection
@@ -59,9 +60,11 @@ def init_state(
     timestamp: float = 0.0,
     T0=None,
     *,
-    device,
+    device="cuda",
 ) -> DDLOState:
-    dev = torch.device(device)
+    """The state after the first scan, on ``device`` (the card unless the
+    caller asks for the CPU; without a card the default raises)."""
+    dev = device_mod.resolve(device)
     return DDLOState(
         odom=odometry.init_state(cfg, raw_points, raw_mask, T0, device=dev),
         tracks=tracker.empty_state(cfg.capacity.max_tracks, device=dev),

@@ -14,6 +14,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from dynamic_direct_lidar_odometry_tpu_torch.config import TrackingConfig
+from dynamic_direct_lidar_odometry_tpu_torch.core import device as device_mod
 from dynamic_direct_lidar_odometry_tpu_torch.ops import bbox as bbox_ops
 from dynamic_direct_lidar_odometry_tpu_torch.ops import hungarian, kalman
 from dynamic_direct_lidar_odometry_tpu_torch.ops.bbox import Objects
@@ -54,9 +55,10 @@ class TrackerOutputs(NamedTuple):
     spawned: torch.Tensor  # (D,) bool new filter created
 
 
-def empty_state(max_tracks: int, *, device) -> TrackerState:
+def empty_state(max_tracks: int, *, device="cuda") -> TrackerState:
     T = max_tracks
     f32, i32 = torch.float32, torch.int32
+    device = device_mod.resolve(device)
 
     def z(*shape, dtype=f32):
         return torch.zeros(shape, dtype=dtype, device=device)

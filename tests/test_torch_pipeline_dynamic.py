@@ -9,8 +9,7 @@ within 1e-3 and the same track statuses.
     8 scans;
 (b) the accelerator paths: tests/test_torch_pipeline_dynamic_accel.py;
 (c) the golden trajectory tests/golden/linear_32x512_seed7.npz, its
-    scene built through the port's own ``io.synthetic``, within 1e-2 m
-    (see the test for why not 5e-3);
+    scene built through the port's own ``io.synthetic``, within 5e-3 m;
 (d) the state bridge: a JAX mid-sequence state, tracker included,
     round-trips through ``interop`` and one dynamic step from it agrees.
 """
@@ -52,16 +51,16 @@ def test_ddlo_exact_paths_match_jax(dyn_run):
 
 def test_port_reproduces_the_golden_trajectory():
     """ROADMAP milestone (b), organized layout: tests/golden_scenes.py's
-    scene and replay, through the port (and its own synthetic).
+    scene and replay, through the port (and its own synthetic), at the
+    JAX golden test's 5e-3 m.
 
-    Bar 1e-2 m, not the JAX golden test's 5e-3: this scene's sensor sits
-    at ground level, so z is weakly constrained and the LM step
-    amplifies rounding. The JAX package itself now lands 4.8e-3 from its
-    own golden at one scan; one port step from the identical JAX state
-    moves z by 2.7 mm: with identical neighbor sets, the near-collinear
-    neighborhoods' normals (eigenvalues ~0, 1e-4, 0.8) are decided by
-    rounding, and a few covariances change. The port's largest miss is
-    8.0e-3 m."""
+    This scene's sensor sits at ground level, so z is weakly constrained
+    and the LM step amplifies rounding: the JAX package itself lands
+    4.8e-3 from its own golden at one scan. The port's neighborhood
+    covariances are bit-identical to the JAX ones; its PLANE
+    regularization still rounds differently on a few near-collinear
+    neighborhoods (tests/test_torch_golden_rounding.py), and its largest
+    miss is 4.75e-3 m."""
     from golden_scenes import golden_cfg
 
     from dynamic_direct_lidar_odometry_tpu_torch.io import synthetic
@@ -84,7 +83,7 @@ def test_port_reproduces_the_golden_trajectory():
         pts, mask = synthetic.render_scan(world, T, H=32, W=512, t=0.1 * i, extra_boxes=mov, rng=rng)
         st, out = pipeline.step(cfg, st, pts, mask, 0.1 * i)
         poses.append(n(out.odom.pose))
-    np.testing.assert_allclose(np.array(poses), np.load(GOLDEN)["poses"], atol=1e-2)
+    np.testing.assert_allclose(np.array(poses), np.load(GOLDEN)["poses"], atol=5e-3)
 
 
 def test_state_bridge_round_trip_and_one_dynamic_step(dyn_run):

@@ -15,8 +15,8 @@ and reports, for the scans after the warm-up:
   scan;
 - from ``torch.profiler`` over the same scans: device-busy time (the
   union of kernel intervals) against the wall time, i.e. the device's
-  idle share, the number of kernel launches, and the top kernels by
-  device time.
+  idle share, the number of kernel launches, the top kernels by device
+  time, and the hand-written NN kernels' time and share of busy time.
 
     python tools/torch_profile_slice.py --scans 12 --warmup 2
     python tools/torch_profile_slice.py --backends dense   # DDLO_NN_IMPL/KNN_IMPL=pallas
@@ -192,7 +192,12 @@ def main(argv=None) -> int:
     for e in kernels:
         by_name[e.name] += e.time_range.end - e.time_range.start
         calls[e.name] += 1
+    nn_us = {k: sum(t for n, t in by_name.items() if k in n)
+             for k in ("nn1_kernel", "knn_classes_kernel")}
     report.update(
+        # the hand-written NN kernels' device time and share of busy time
+        nn_kernels={k: dict(ms_per_scan=v / 1e3 / len(scans), share_of_busy=v / busy if busy else None)
+                    for k, v in nn_us.items()},
         device_busy_ms_per_scan=busy / 1e3 / len(scans),
         # busy time under the profiler, wall time of the plain replay
         device_idle_share=1.0 - busy / 1e3 / len(scans) / plain_ms,
