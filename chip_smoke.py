@@ -16,9 +16,14 @@ Phases, in order; any failure exits non-zero and prints no result:
    at r = 1), dense 1-NN (16,384 x 16,384 and 16,384 x 65,536), lane-class
    k-NN (16,384 x 16,384 at k = 10 and 20, dense and pruned at r = 5),
    plus sentinel / non-multiple cases, a tie case (every target point
-   four times, the copies straddling the 1-NN kernels' split boundaries)
-   and a long-list case (one query tile whose box spans the submap).
-   Pass: identical index and distance on every row, in radius or not.
+   four times, the copies straddling the 1-NN kernels' split boundaries
+   and, for the lane-class kernel, meeting inside a class and across
+   classes) and a long-list case (one query tile whose box spans the
+   submap); for the lane-class kernel also k = 1 and k = 128, a target
+   of exactly one chunk, 128-row chunks whose count is no multiple of
+   the kernel's batch, and a pruned call with one tile's list emptied.
+   Pass: identical index and distance on every row, in radius or not;
+   no kernel spills registers; a lane-class call is one device operation.
    Times (median of 20 calls): ``ms``, the device time of every operation
    one wrapper call puts on the card (``torch.profiler``: the 1-NN key
    fill and kernel, summed per call); ``kernel_ms``, the kernel's alone;
@@ -308,8 +313,8 @@ PTXAS_NAMES = {"nn1_kernelILb0": "nn1_sparse", "nn1_kernelILb1": "nn1_dense",
 
 
 def ptxas_report(log: str) -> dict:
-    """Registers and spill bytes of each kernel, from nvcc's ``-Xptxas -v``
-    output."""
+    """Registers, spill bytes and stack frame of each kernel, from nvcc's
+    ``-Xptxas -v`` output."""
     out, cur = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -325,6 +330,9 @@ def ptxas_report(log: str) -> dict:
         m = re.search(r"Used (\d+) registers", line)
         if m:
             out[cur]["registers"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes stack frame", line)
+        if m:
+            out[cur]["stack_bytes"] = int(m.group(1))
     return out
 
 
@@ -436,21 +444,24 @@ def check_dense(name, query, target):
     )
 
 
-def check_classes(name, query, target, k, prune_radius=None):
+def check_classes(name, query, target, k, prune_radius=None, t_chunk=512, empty_tile=None):
     """The lane-class k-NN kernel (dense or pruned) against its plain
-    version: every row identical."""
+    version: every row identical, and one device operation per call.
+    ``empty_tile``: a query tile whose chunk list is emptied."""
     import torch
 
     from dynamic_direct_lidar_odometry_tpu_torch.core.cloud import pad_rows
     from dynamic_direct_lidar_odometry_tpu_torch.ops import nn_cuda
 
-    Q, T, q_tile, t_chunk = query.shape[0], target.shape[0], 1024, 512
+    Q, T, q_tile = query.shape[0], target.shape[0], 1024
     q = pad_rows(query, q_tile, 0.0).contiguous()
     t = pad_rows(target, t_chunk, 1.0e6)
     tt = t.T.contiguous()
     counts = lists = None
     if prune_radius is not None:
         counts, lists = nn_cuda.class_chunk_lists(q, t, prune_radius, q_tile, t_chunk)
+        if empty_tile is not None:
+            counts[empty_tile] = 0
     args = (q, tt, counts, lists, q_tile, t_chunk, k)
     ik, dk = nn_cuda.knn_classes_chunks(*args)
     ir, dr = nn_cuda.knn_classes_reference(*args)
@@ -465,13 +476,16 @@ def check_classes(name, query, target, k, prune_radius=None):
         ar = torch.arange(t_chunk, device=q.device)
         cols = [(lists[i, :c, None].long() * t_chunk + ar).reshape(-1)
                 for i, c in enumerate(counts.tolist())]
-    return _record(
+    rec = _record(
         kernel, name, Q, T, err, same, pairs,
         (query.numel() + target.numel()) * 4 + 8 * Q * k,
         lambda: nn_cuda.knn_classes_chunks(*args),
         cuda_ms(lambda: nn_cuda.knn_classes_reference(*args)),
-        _cdist_tiles(q, t, q_tile, cols, k=k), k=k, prune_radius=prune_radius,
+        _cdist_tiles(q, t, q_tile, cols, k=k), k=k, prune_radius=prune_radius, t_chunk=t_chunk,
     )
+    check(rec["device_ops_per_call"] in (1, "not measured"),
+          f"{kernel} {name}: {rec['device_ops_per_call']} device operations per call {rec['device_op_names']}")
+    return rec
 
 
 def compare_detection(inputs, cfg):
@@ -586,6 +600,9 @@ def main(argv=None) -> int:
     for b in built.values():
         ptxas.update(ptxas_report(b.log))
     print("ptxas " + json.dumps(ptxas), flush=True)
+    if all(b.seconds for b in built.values()):  # a library built earlier has no report
+        check(set(ptxas) >= set(KERNELS) and all(v.get("spill_bytes") == 0 for v in ptxas.values()),
+              f"ptxas reports a spill or misses a kernel: {ptxas}")
 
     ref_dlo, ref_ddlo = np.load(GOLDEN_DLO), np.load(GOLDEN_DDLO)
     n = int(ref_ddlo["n_scans"])
@@ -627,6 +644,16 @@ def main(argv=None) -> int:
             check_classes(f"cov_k{k}_r5", query, query, k, prune_radius=5.0),
             check_classes("sentinels_nonmultiple_r5", odd_q, odd_q[: odd_q.shape[0] - 100], k,
                           prune_radius=5.0),
+            check_classes("ties_16k_x_64k", query, ties_t, k),
+            check_classes("ties_16k_x_64k_r5", query, ties_t, k, prune_radius=5.0),
+            check_classes("k1", query, query, 1),
+            check_classes("k128", query, query, 128),
+            check_classes("one_chunk", query, query[:512], k),
+            check_classes("chunks_of_128_odd_count", odd_q, odd_q[: odd_q.shape[0] - 100], k,
+                          t_chunk=128),
+            check_classes("chunks_of_128_odd_count_r5", odd_q, odd_q[: odd_q.shape[0] - 100], k,
+                          prune_radius=5.0, t_chunk=128),
+            check_classes(f"cov_k{k}_r5_empty_tile", query, query, k, prune_radius=5.0, empty_tile=2),
         ]
         for r in recs:
             records.setdefault(r["kernel"], []).append(r)

@@ -151,6 +151,7 @@ def build() -> Dict[str, _cuda_build.Built]:
         ("knn_classes", "ddlo_knn_classes", [P] * 2 + [I] * 4 + [P] * 3),
         ("knn_classes", "ddlo_knn_classes_sparse", [P] * 4 + [I] * 6 + [P] * 3),
         ("knn_classes", "ddlo_knn_classes_queries_per_block", []),
+        ("knn_classes", "ddlo_knn_classes_unit_rows", []),
     ):
         f = getattr(built[lib].lib, fn)
         f.argtypes = args
@@ -463,25 +464,28 @@ def knn_classes_chunks(
     the index clamp. ``counts``/``lists`` None selects the dense kernel
     (``knn_classes``), else the pruned one (``knn_classes_sparse``). CUDA
     tensors launch it (or raise); CPU tensors run
-    :func:`knn_classes_reference`."""
+    :func:`knn_classes_reference`. One device operation per call: the
+    kernel writes every output element, so nothing is filled first."""
     if not 1 <= k <= 128:
         raise ValueError(f"knn_classes: k={k} must be in [1, 128]")
     if not q.is_cuda:
         return knn_classes_reference(q, tt, counts, lists, q_tile, t_chunk, k)
     _check_inputs(q, tt, counts, lists)
     lib = build()["knn_classes"].lib
-    qpb = lib.ddlo_knn_classes_queries_per_block()
+    qpb, unit = lib.ddlo_knn_classes_queries_per_block(), lib.ddlo_knn_classes_unit_rows()
     Qp, Tp = q.shape[0], tt.shape[1]
     sparse = counts is not None
+    if tt.data_ptr() % 16:
+        raise ValueError("knn_classes: tt must be 16-byte aligned (cp.async staging)")
     if (
-        Qp % q_tile or q_tile % qpb or t_chunk % 128 or Tp % t_chunk or Tp == 0
+        Qp % q_tile or q_tile % qpb or t_chunk % unit or Tp % t_chunk or Tp == 0
         or (sparse and (lists.shape != (Qp // q_tile, Tp // t_chunk)
                         or counts.shape[0] != Qp // q_tile))
     ):
         raise ValueError(
             f"knn_classes: inconsistent shapes q={tuple(q.shape)} "
             f"tt={tuple(tt.shape)} q_tile={q_tile} (multiple of {qpb}) "
-            f"t_chunk={t_chunk} (multiple of 128)"
+            f"t_chunk={t_chunk} (multiple of {unit})"
         )
     out_idx = torch.empty((Qp, k), dtype=torch.int32, device=q.device)
     out_d = torch.empty((Qp, k), dtype=torch.float32, device=q.device)

@@ -3,8 +3,9 @@
 Tolerances: se3 atol 1e-6 (f32 elementwise math, operation order may
 differ); voxel/compact output mask and row order EQUAL, centroids atol
 1e-5 (summation order only); preprocess points atol 1e-5 and the median
-exact; exact NN sweeps idx equal (k-NN: except on near-ties the f32
-distance expansion cannot order), sqd atol 1e-4; covariances: see each
+within 2 ulp (XLA may contract the range's sum of squares); exact NN
+sweeps idx equal (k-NN: except on near-ties the f32 distance expansion
+cannot order), sqd atol 1e-4; covariances: see each
 test (the PLANE normal's own conditioning and the window path's f32
 cancellation set the bars).
 """
@@ -119,7 +120,16 @@ def test_preprocess_matches_jax():
     tp = preprocess.preprocess(port_cfg(cfg), t(pts), t(mask))
     np.testing.assert_array_equal(n(tp.mask), np.asarray(jp.mask))
     np.testing.assert_allclose(n(tp.points), np.asarray(jp.points), atol=1e-5, rtol=0)
-    assert float(tp.spaciousness_median) == float(jp.spaciousness_median)
+    # 2 ulp of f32: the range is sqrt(x^2 + y^2 + z^2), XLA's CPU backend
+    # may contract the sum of squares into FMAs or not, host by host, and
+    # the port takes one fixed order (fma(z, z, fma(y, y, x * x)))
+    np.testing.assert_allclose(
+        float(tp.spaciousness_median), float(jp.spaciousness_median), rtol=2.4e-7, atol=0
+    )
+    # what the pipeline consumes of the median: the same keyframe threshold
+    assert float(preprocess.adaptive_keyframe_thresh(tp.spaciousness_median)) == float(
+        jprep.adaptive_keyframe_thresh(jp.spaciousness_median)
+    )
     for s in (3.0, 7.0, 12.0, 25.0):
         assert float(preprocess.adaptive_keyframe_thresh(torch.tensor(s))) == float(
             jprep.adaptive_keyframe_thresh(jnp.float32(s))
