@@ -54,8 +54,33 @@ Phases, in order; any failure exits non-zero and prints no result:
 8. The pruned k-NN entry point (``nn_cuda.knn_approx(prune_radius=5)``,
    as ``tools/profile_stages.py`` calls it) on the phase-7 scans'
    registration clouds.
+9. The replay loop: ``runner.replay(bench_config(), ...)`` on the card
+   over the same 16 scans, into a temporary directory with every artifact
+   on (evaluation dumps, ``checkpoint_every=8``, ``save_every=8``,
+   ``export_clouds_every=8``). Pass: poses within 10 mm of the JAX CPU
+   replay (``tests/golden/torch_port_replay_steady_jaxcpu.npz``),
+   keyframe count equal, map points within 2 %, dynamic pixels within
+   10 %; every artifact exists and parses, ``map.pcd`` holds the final
+   snapshot's points; resuming from ``ckpt_000008.npz`` reproduces scans
+   9-15 within 1e-5 m; ``mapper.remove_boxes`` on the card equals the
+   port on the host for the final map and every history box of the final
+   tracks. Times: the ``total`` accumulator per scan of a second replay
+   without artifacts (and of the first), the map node's calls at their
+   replay inputs, and the device idle share (busy time from a profiled
+   third replay over the second's wall time).
+10. The CLI at its own capacity: the first 8 scans written to an ``.npz``
+   and ``cli.main(["run", "--dataset", ..., "--out", ..., "--quiet"])``
+   (``doals_config`` + ``capacity_for_scan``: 128 keyframes, a 65,536-point
+   cloud, a 262,144-point submap). Pass: the TUM trajectory within 10 mm
+   of the JAX CPU run (``tests/golden/torch_port_cli_steady_jaxcpu.npz``),
+   keyframe count equal, ATE < 5 cm; the blocked (K > 64) hulls ran; the
+   card's blocked hull masks equal the host port's for the final store
+   (from the run's last checkpoint) and for 128- and 256-keyframe stores,
+   which are also timed. A second run without artifacts gives the
+   per-scan ``total`` and, with a profiled third, the idle share.
 
-The line before the last is the kernel table as JSON; the last line is
+The line before the last is the kernel table as JSON (``nn1_sparse``'s
+launches summed over phases 4, 5, 9 and 10); the last line is
 ``{"ok": true, "device": {...}}`` (full runs only).
 """
 
@@ -76,8 +101,14 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN_DLO = os.path.join(ROOT, "tests", "golden", "torch_port_dlo_steady_jaxcpu.npz")
 GOLDEN_DDLO = os.path.join(ROOT, "tests", "golden", "torch_port_ddlo_steady_jaxcpu.npz")
+GOLDEN_REPLAY = os.path.join(ROOT, "tests", "golden", "torch_port_replay_steady_jaxcpu.npz")
+GOLDEN_CLI = os.path.join(ROOT, "tests", "golden", "torch_port_cli_steady_jaxcpu.npz")
 DIVERGENCE_BAR_M = 0.010  # the ACCURACY_r05.json default-vs-exact bar
 DETECTION_BAR = 0.10  # total valid detections vs the JAX CPU run
+MAP_BAR = 0.02  # map points vs the JAX CPU replay
+DYNAMIC_BAR = 0.10  # dynamic pixels over the run vs the JAX CPU replay
+ATE_BAR_M = 0.05  # BASELINE.md's 5 cm
+RESUME_ATOL_M = 1e-5
 WARMUP_SCANS = 2
 DENSE_SCANS = 8
 STATE_ATOL = 1e-4
@@ -558,13 +589,271 @@ def slice_summary(tag, poses, steps, ref, seq, n, card):
     return out, float(div.max())
 
 
+def device_busy_ms(fn) -> tuple:
+    """(busy ms, device operations) of ``fn`` on the card, under
+    ``torch.profiler`` (CUPTI timestamps)."""
+    import torch
+
+    from dynamic_direct_lidar_odometry_tpu_torch.utils import profiling
+
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    busy, ops = profiling.device_busy_us(prof)
+    return busy / 1e3, ops
+
+
+def sub_sequence(seq, n):
+    from dynamic_direct_lidar_odometry_tpu_torch.io.dataset import ScanSequence
+
+    return ScanSequence(points=seq.points[:n], mask=seq.mask[:n], stamps=seq.stamps[:n],
+                        H=seq.H, W=seq.W, gt_poses=seq.gt_poses[:n])
+
+
+@contextlib.contextmanager
+def recorded(mod, names):
+    """Count the calls of ``mod``'s functions ``names`` and keep each one's
+    last arguments, without touching what they do."""
+    rec = {n: dict(calls=0, args=None) for n in names}
+    real = {n: getattr(mod, n) for n in names}
+
+    def wrap(n):
+        def f(*a, **kw):
+            rec[n]["calls"] += 1
+            rec[n]["args"] = (a, kw)
+            return real[n](*a, **kw)
+        return f
+
+    for n in names:
+        setattr(mod, n, wrap(n))
+    try:
+        yield rec
+    finally:
+        for n in names:
+            setattr(mod, n, real[n])
+
+
+def check_artifacts(out, res, cfg, n):
+    """Phase 9: every file of the replay exists and parses."""
+    from dynamic_direct_lidar_odometry_tpu_torch.io import pcd
+    from dynamic_direct_lidar_odometry_tpu_torch.mapping import mapper
+
+    steps = n - 1
+    for name in ("trajectory_tum.txt", "trajectory_tum_00008.txt"):
+        arr = np.loadtxt(os.path.join(out, name), ndmin=2)
+        want = steps if name == "trajectory_tum.txt" else 8
+        check(arr.shape == (want, 8) and np.all(np.isfinite(arr)), f"{name}: shape {arr.shape}")
+    snap_pts, snap_mask = mapper.snapshot(res.map_state, cfg.map.leaf_size, 500_000)
+    map_pts, _ = pcd.load_pcd(os.path.join(out, "map.pcd"))
+    check(len(map_pts) == int(snap_mask.sum()) > 0,
+          f"map.pcd holds {len(map_pts)} points, the snapshot {int(snap_mask.sum())}")
+    check(np.array_equal(map_pts, snap_pts[snap_mask].cpu().numpy()), "map.pcd differs from the final snapshot")
+    for name in ("map_00008.pcd", "clouds/00008_residuals.pcd", "clouds/00008_static.pcd",
+                 "clouds/00008_keyframes.pcd"):
+        pts, extra = pcd.load_pcd(os.path.join(out, name))
+        check(len(pts) > 0 and np.all(np.isfinite(pts)), f"{name}: {len(pts)} points")
+        if "residuals" in name:
+            check("intensity" in extra, "the residual cloud has no intensity")
+    with open(os.path.join(out, "tracks.jsonl")) as f:
+        tracks = [json.loads(line) for line in f]
+    check(len(tracks) > 0 and all(len(t["state"]) == 7 for t in tracks), "tracks.jsonl")
+    sessions = [d for d in os.listdir(out) if os.path.isdir(os.path.join(out, d)) and d[:2] == "20"]
+    check(len(sessions) == 1, f"evaluation sessions {sessions}")
+    sess = os.path.join(out, sessions[0])
+    with open(os.path.join(sess, "poses.txt")) as f:
+        check(f.read().count(";") == steps, "poses.txt blocks")
+    idx = []
+    for i in range(1, n):
+        with open(os.path.join(sess, "%04d.txt" % i)) as f:
+            idx.append([int(v) for v in f.read().split()])
+    check([len(a) for a in idx] == res.dynamic_counts.tolist(), "dynamic index files")
+    check(os.path.exists(os.path.join(out, "ckpt_000008.npz")), "no checkpoint at scan 8")
+    objs = [f for f in os.listdir(out) if f.startswith("object_traj_obj")]
+    for f in objs:
+        check(np.loadtxt(os.path.join(out, f), ndmin=2).shape[1] == 5, f)
+    return dict(files=sorted(os.listdir(out)), tracks_records=len(tracks), object_trajectories=len(objs),
+                map_pcd_points=len(map_pts))
+
+
+def replay_phase(cfg, seq, ref, card):
+    """Phase 9: ``runner.replay`` on the card, against the JAX CPU replay."""
+    import tempfile
+
+    import torch
+
+    from dynamic_direct_lidar_odometry_tpu_torch import runner
+    from dynamic_direct_lidar_odometry_tpu_torch.mapping import mapper
+    from dynamic_direct_lidar_odometry_tpu_torch.ops import nn_cuda
+
+    n = int(ref["n_scans"])
+    sub = sub_sequence(seq, n)
+    nn_cuda.LAUNCHES.clear()
+    with tempfile.TemporaryDirectory() as out:
+        with recorded(runner.mapper, ("add_keyframe", "remove_boxes", "snapshot")) as calls:
+            res = runner.replay(cfg, sub, out_dir=out, evaluate=True, checkpoint_every=8,
+                                save_every=8, export_clouds_every=8)
+        launches = nn_cuda.LAUNCHES["nn1_sparse"]
+        files = check_artifacts(out, res, cfg, n)
+        resumed = runner.replay(cfg, sub, resume_from=os.path.join(out, "ckpt_000008.npz"))
+    div = float(np.linalg.norm(res.poses - ref["poses"], axis=1).max())
+    resume_err = float(np.abs(resumed.poses - res.poses[-len(resumed.poses):]).max())
+    dyn, dyn_jax = int(res.dynamic_counts.sum()), int(ref["dynamic_counts"].sum())
+
+    # the map node's calls on the card at the replay's last inputs
+    map_ms = {k: cuda_ms(lambda a=v["args"]: getattr(mapper, k)(*a[0], **a[1]), reps=10)
+              for k, v in calls.items() if v["args"] is not None}
+    # remove_boxes over every history box of the final tracks, card vs host
+    trk = res.final_state.tracks
+    boxes, valid = trk.bbox_hist, trk.active[:, None].expand(trk.bbox_hist.shape[:2])
+    m_card = mapper.remove_boxes(res.map_state, boxes, valid, margin=cfg.map.filter_margin)
+    host = type(res.map_state)(*(t.cpu() for t in res.map_state))
+    m_host = mapper.remove_boxes(host, boxes.cpu(), valid.cpu(), margin=cfg.map.filter_margin)
+    removed = int(res.map_state.mask.sum() - m_card.mask.sum())
+    map_ms["remove_boxes_final_history"] = cuda_ms(
+        lambda: mapper.remove_boxes(res.map_state, boxes, valid, margin=cfg.map.filter_margin), reps=10)
+    # the replay alone (no artifacts), then its device busy time under the profiler
+    bare = runner.replay(cfg, sub)
+    repeat_err = float(np.abs(bare.poses - res.poses).max())
+    busy, kernels = device_busy_ms(lambda: runner.replay(cfg, sub))
+    tot, tot_bare = res.profiler["total"], bare.profiler["total"]
+    rec = dict(
+        scans=n, card=card, max_divergence_mm=div * 1e3,
+        ate_port_mm=runner.ate_rmse(res.poses, sub.gt_poses) * 1e3, ate_jax_cpu_mm=float(ref["ate"]) * 1e3,
+        keyframes=res.num_keyframes, keyframes_jax=int(ref["num_keyframes"]),
+        map_points=res.map_points, map_points_jax=int(ref["map_points"]),
+        dynamic_pixels=dyn, dynamic_pixels_jax=dyn_jax,
+        scans_that_cleared_boxes=calls["remove_boxes"]["calls"],
+        map_calls={k: v["calls"] for k, v in calls.items()}, map_ms_per_call=map_ms,
+        total_ms_per_scan=dict(mean=tot_bare.mean, min=tot_bare.min, max=tot_bare.max, n=tot_bare.n),
+        total_ms_per_scan_with_artifacts=dict(mean=tot.mean, min=tot.min, max=tot.max, n=tot.n),
+        device_busy_ms_per_scan=busy / (n - 1), kernels_per_scan=kernels / (n - 1),
+        device_idle_share=1.0 - busy / (n - 1) / tot_bare.mean,
+        resume_max_abs_m=resume_err, repeat_max_abs_m=repeat_err,
+        final_history_boxes=int(valid.sum()), points_in_boxes=removed,
+        launches=dict(nn1_sparse=launches), **files,
+    )
+    print("replay " + json.dumps(rec), flush=True)
+    check(div <= DIVERGENCE_BAR_M, f"replay poses diverge {div * 1e3:.3f} mm from JAX")
+    check(res.num_keyframes == int(ref["num_keyframes"]), "replay keyframe count differs from JAX")
+    check(abs(res.map_points - int(ref["map_points"])) <= MAP_BAR * int(ref["map_points"]),
+          f"{res.map_points} map points against {int(ref['map_points'])}")
+    check(abs(dyn - dyn_jax) <= DYNAMIC_BAR * dyn_jax, f"{dyn} dynamic pixels against {dyn_jax}")
+    check(len(resumed.poses) == n - 9 and resume_err <= RESUME_ATOL_M,
+          f"resuming from scan 8 moved a pose by {resume_err} m")
+    check(repeat_err <= RESUME_ATOL_M, f"a second replay moved a pose by {repeat_err} m")
+    check(torch.equal(m_card.mask.cpu(), m_host.mask) and torch.equal(m_card.points.cpu(), m_host.points),
+          "remove_boxes differs between the card and the host")
+    check(launches >= 3 * (n - 1), f"nn1_sparse launched {launches} times in {n - 1} replayed scans")
+    return launches
+
+
+def hull_stores(K):
+    """K keyframe positions along a wandering planar trajectory (the
+    replay's kind of store), all valid."""
+    rng = np.random.default_rng(K)
+    heading = np.cumsum(rng.normal(0, 0.4, K))
+    steps = np.stack([np.cos(heading), np.sin(heading), rng.normal(0, 0.05, K)], 1)
+    return (20.0 * np.cumsum(steps, 0) / K).astype(np.float32)
+
+
+def cli_phase(seq, ref, card):
+    """Phase 10: ``cli run`` at its own capacity, on the card."""
+    import io
+    import tempfile
+
+    import torch
+
+    from dynamic_direct_lidar_odometry_tpu_torch import cli, pipeline
+    from dynamic_direct_lidar_odometry_tpu_torch.mapping import mapper
+    from dynamic_direct_lidar_odometry_tpu_torch.odometry import keyframes as kf
+    from dynamic_direct_lidar_odometry_tpu_torch.ops import nn_cuda
+    from dynamic_direct_lidar_odometry_tpu_torch.utils import checkpoint, metrics
+
+    n = int(ref["n_scans"])
+    sub = sub_sequence(seq, n)
+    cfg = cli.run_config(seq.H, seq.W)
+    with tempfile.TemporaryDirectory() as d:
+        path, out = os.path.join(d, "seq.npz"), os.path.join(d, "out")
+        sub.save(path)
+        args = ["run", "--dataset", path, "--out", out, "--quiet", "--checkpoint-every", str(n - 1)]
+        kf.BLOCKED_CALLS.update(convex=0, concave=0)
+        nn_cuda.LAUNCHES.clear()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(args)
+        launches, blocked = nn_cuda.LAUNCHES["nn1_sparse"], dict(kf.BLOCKED_CALLS)
+        text = buf.getvalue()
+        check(rc == 0, f"cli run returned {rc}")
+        tum = np.loadtxt(os.path.join(out, "trajectory_tum.txt"), ndmin=2)
+        like = (pipeline.init_state(cfg, sub.points[0], sub.mask[0]), mapper.empty_map(500_000))
+        (state, _), meta = checkpoint.restore(os.path.join(out, f"ckpt_{n - 1:06d}.npz"), like)
+        # the CLI without artifacts (warm), then its device busy time under the profiler
+        bare = io.StringIO()
+        with contextlib.redirect_stdout(bare):
+            check(cli.main(["run", "--dataset", path, "--quiet"]) == 0, "cli run (bare) failed")
+        with contextlib.redirect_stdout(io.StringIO()):
+            busy, kernels = device_busy_ms(lambda: cli.main(["run", "--dataset", path, "--quiet"]))
+    summary = re.search(r"scans=(\d+) keyframes=(\d+) map_points=(\d+)", text)
+    ate = re.search(r"ATE RMSE vs ground truth: ([\d.]+) m", text)
+    total_re = r"total: last +([\d.]+) +mean +([\d.]+) +var +[\d.]+ +min +([\d.]+) +max +([\d.]+)"
+    total, total_bare = re.search(total_re, text), re.search(total_re, bare.getvalue())
+    check(summary and ate and total and total_bare, f"cli run printed no summary: {text[-500:]}")
+    keyframes = int(summary.group(2))
+    ate_m = metrics.ate_rmse(tum[:, 1:4], sub.gt_poses, est_stamps=tum[:, 0], gt_stamps=sub.stamps)
+    check(abs(ate_m - float(ate.group(1))) < 1e-4, f"cli run printed ATE {ate.group(1)}, the trajectory gives {ate_m}")
+    div = float(np.linalg.norm(tum[:, 1:4] - ref["poses"], axis=1).max())
+
+    # blocked hulls: the final store, and 128- and 256-keyframe stores
+    store, dev = state.odom.store, state.odom.T.device
+    hulls = {}
+    for tag, pos, valid, alpha in [
+        ("final_store", store.positions, store.valid, state.odom.keyframe_thresh_dist),
+        *[(f"K{K}", torch.as_tensor(hull_stores(K), device=dev), torch.ones(K, dtype=torch.bool, device=dev),
+           torch.tensor(1.0, device=dev)) for K in (128, 256)],
+    ]:
+        card_m = (kf.convex_hull_mask(pos, valid), kf.concave_hull_mask(pos, valid, alpha))
+        host_m = (kf.convex_hull_mask(pos.cpu(), valid.cpu()),
+                  kf.concave_hull_mask(pos.cpu(), valid.cpu(), alpha.cpu()))
+        same = all(torch.equal(a.cpu(), b) for a, b in zip(card_m, host_m))
+        hulls[tag] = dict(K=int(pos.shape[0]), valid=int(valid.sum()), convex=int(card_m[0].sum()),
+                          concave=int(card_m[1].sum()), card_equals_host=same)
+        if tag != "final_store":
+            hulls[tag].update(convex_ms=cuda_ms(lambda: kf.convex_hull_mask(pos, valid), reps=10),
+                              concave_ms=cuda_ms(lambda: kf.concave_hull_mask(pos, valid, alpha), reps=10))
+        check(same, f"blocked hulls of {tag} differ between the card and the host")
+    steps = int(summary.group(1))
+    rec = dict(
+        scans=n, card=card, max_divergence_mm=div * 1e3, ate_port_mm=ate_m * 1e3,
+        ate_jax_cpu_mm=float(ref["ate"]) * 1e3, keyframes=keyframes, keyframes_jax=int(ref["num_keyframes"]),
+        map_points=int(summary.group(3)), map_points_jax=int(ref["map_points"]),
+        capacity=dict(max_keyframes=cfg.capacity.max_keyframes, max_points=cfg.capacity.max_points,
+                      max_submap_points=cfg.capacity.max_submap_points),
+        total_ms_per_scan={k: float(total_bare.group(i)) for k, i in (("mean", 2), ("min", 3), ("max", 4))},
+        total_ms_per_scan_with_artifacts={k: float(total.group(i)) for k, i in (("mean", 2), ("min", 3), ("max", 4))},
+        device_busy_ms_per_scan=busy / steps, kernels_per_scan=kernels / steps,
+        device_idle_share=1.0 - busy / steps / float(total_bare.group(2)),
+        blocked_hull_calls=blocked, hulls=hulls, launches=dict(nn1_sparse=launches),
+    )
+    print("cli " + json.dumps(rec), flush=True)
+    check(cfg.capacity.max_keyframes > 64, "the CLI capacity does not take the blocked hulls")
+    check(blocked["convex"] > 0 and blocked["concave"] > 0, f"the blocked hulls did not run: {blocked}")
+    check(steps == n - 1 and tum.shape == (n - 1, 8), f"cli run replayed {steps} scans")
+    check(div <= DIVERGENCE_BAR_M, f"cli run poses diverge {div * 1e3:.3f} mm from JAX")
+    check(keyframes == int(ref["num_keyframes"]), "cli run keyframe count differs from JAX")
+    check(ate_m < ATE_BAR_M, f"cli run ATE {ate_m} m")
+    check(meta.get("next_scan") == n, f"last checkpoint meta {meta}")
+    check(launches >= 3 * steps, f"nn1_sparse launched {launches} times in {steps} scans")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Smoke check of the PyTorch port on one GPU")
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10",
                     help="comma-separated subset; the check is the full run")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
-    full = phases == set(range(1, 9))
+    full = phases == set(range(1, 11))
 
     import torch
 
@@ -605,19 +894,23 @@ def main(argv=None) -> int:
               f"ptxas reports a spill or misses a kernel: {ptxas}")
 
     ref_dlo, ref_ddlo = np.load(GOLDEN_DLO), np.load(GOLDEN_DDLO)
+    ref_replay, ref_cli = np.load(GOLDEN_REPLAY), np.load(GOLDEN_CLI)
     n = int(ref_ddlo["n_scans"])
-    check(int(ref_dlo["n_scans"]) == n, "the two goldens cover different scans")
+    check(int(ref_dlo["n_scans"]) == n == int(ref_replay["n_scans"]), "the goldens cover different scans")
     cfg_dlo = config.bench_config(dynamic_detection=False)
     cfg = config.bench_config()
     seq = None
-    if phases & {3, 4, 5, 6, 7, 8}:
+    if phases & set(range(3, 11)):
         t0 = time.perf_counter()
         seq = sequence.steady_state_sequence(64)
         print(f"sequence: 64 scans {seq.H}x{seq.W} in {time.perf_counter() - t0:.1f} s (host)", flush=True)
         digest = sequence.sequence_sha256(seq, n)
-        for ref in (ref_dlo, ref_ddlo):
+        for ref in (ref_dlo, ref_ddlo, ref_replay):
             check(digest == str(ref["scans_sha256"]),
                   f"scans 0-{n - 1} differ from the reference sequence (sha256 {digest})")
+        m = int(ref_cli["n_scans"])
+        check(sequence.sequence_sha256(seq, m) == str(ref_cli["scans_sha256"]),
+              f"scans 0-{m - 1} differ from the CLI reference sequence")
 
     # ---- 3. kernels vs their plain versions ----
     records = {}
@@ -659,6 +952,7 @@ def main(argv=None) -> int:
             records.setdefault(r["kernel"], []).append(r)
 
     launches = {}
+    sparse_launches = {}  # nn1_sparse per phase that runs it, each read right after it
     if 4 in phases:
         # ---- 4. plain DLO ----
         nn_cuda.LAUNCHES.clear()
@@ -669,6 +963,7 @@ def main(argv=None) -> int:
         print("slice " + json.dumps(dict(summary, launches=got, linearizations=linz)), flush=True)
         check(got.get("nn1_sparse", 0) >= linz > 0, f"nn1_sparse launched {got} for {linz} linearizations")
         check(div <= DIVERGENCE_BAR_M, f"plain DLO poses diverge {div * 1e3:.3f} mm from JAX")
+        sparse_launches[4] = got["nn1_sparse"]
 
     keep = n // 2
     inputs = None
@@ -679,7 +974,7 @@ def main(argv=None) -> int:
         hungarian.HOST_READS.clear()
         poses, steps = run_slice(cfg, seq.points[:n], seq.mask[:n], seq.stamps[:n], dev,
                                  timed=True, keep=keep)
-        launches["nn1_sparse"] = nn_cuda.LAUNCHES["nn1_sparse"]
+        sparse_launches[5] = nn_cuda.LAUNCHES["nn1_sparse"]
         linz = sum(r["s2s_iterations"] + r["s2m_iterations"] + 1 for r in steps)
         inputs = steps[keep - 1].pop("inputs")
         summary, div = slice_summary("DDLO", poses, steps, ref_ddlo, seq, n, card)
@@ -696,7 +991,7 @@ def main(argv=None) -> int:
         )
         print("ddlo " + json.dumps(summary), flush=True)
         check(summary["keyframe_flags_match_jax"], "DDLO keyframe flags differ from JAX")
-        check(launches["nn1_sparse"] >= linz > 0, f"nn1_sparse launched {launches['nn1_sparse']} for {linz}")
+        check(sparse_launches[5] >= linz > 0, f"nn1_sparse launched {sparse_launches[5]} for {linz}")
         check(div <= DIVERGENCE_BAR_M, f"DDLO poses diverge {div * 1e3:.3f} mm from JAX")
         check(abs(sum(dets) - sum(jax_dets)) <= DETECTION_BAR * sum(jax_dets),
               f"{sum(dets)} valid detections against {sum(jax_dets)} in the JAX run")
@@ -738,6 +1033,16 @@ def main(argv=None) -> int:
         launches["knn_classes_sparse"] = nn_cuda.LAUNCHES["knn_classes_sparse"]
         print(f"pruned knn: {launches['knn_classes_sparse']} launches over {DENSE_SCANS} scans", flush=True)
         check(launches["knn_classes_sparse"] == DENSE_SCANS, "pruned k-NN did not launch per call")
+
+    if 9 in phases:
+        # ---- 9. the replay loop ----
+        sparse_launches[9] = replay_phase(cfg, seq, ref_replay, card)
+
+    if 10 in phases:
+        # ---- 10. the CLI at its own capacity (blocked hulls) ----
+        sparse_launches[10] = cli_phase(seq, ref_cli, card)
+    launches["nn1_sparse"] = sum(sparse_launches.values())
+    print(f"nn1_sparse launches by phase: {json.dumps(sparse_launches)}", flush=True)
 
     if not full:
         print(f"chip_smoke: phases {sorted(phases)} passed (partial run, no result)")

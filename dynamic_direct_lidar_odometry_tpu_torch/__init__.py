@@ -15,11 +15,15 @@ so each counterpart is easy to find, and is held against it by the
 - Every Pallas kernel of the JAX package is a hand-written CUDA kernel
   under ``csrc/`` (see ``ops/nn_cuda.py``). On CPU tensors the port takes
   the JAX CPU paths; on CUDA tensors it takes the JAX TPU paths.
-- Nothing here imports jax or the JAX package: ``config``, ``io.dataset``
-  and ``io.synthetic`` are the port's own copies.
+- Nothing here imports jax or the JAX package: ``config``, ``io.dataset``,
+  ``io.synthetic``, ``io.pcd``, ``io.pointcloud2`` and the host ``utils``
+  are the port's own copies.
 
-Ported: the full pipeline (plain DLO and dynamic detection + tracking);
-see ROADMAP.md for what remains.
+Ported: the full pipeline (plain DLO and dynamic detection + tracking),
+the global map (``mapping.mapper``), the replay loop (``runner``), the
+CLI (``cli``: ``python -m dynamic_direct_lidar_odometry_tpu_torch.cli
+run --dataset seq.npz --out results/``), checkpoints and the evaluation
+dumps; see ROADMAP.md for what remains.
 """
 
 import torch
@@ -32,3 +36,21 @@ torch.backends.cudnn.allow_tf32 = False
 torch.set_float32_matmul_precision("highest")
 
 __version__ = "0.1.0"
+
+from dynamic_direct_lidar_odometry_tpu_torch.config import (  # noqa: E402,F401
+    DDLOConfig,
+    capacity_for_scan,
+    doals_config,
+    kantplatz_config,
+    load_config,
+)
+
+__all__ = [
+    "DDLOConfig",
+    "capacity_for_scan",
+    "doals_config",
+    "kantplatz_config",
+    "load_config",
+    # submodules (import explicitly): core, ops, odometry, detection,
+    # tracking, pipeline, mapping, io, utils, runner, cli, interop
+]

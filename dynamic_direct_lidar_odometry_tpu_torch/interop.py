@@ -10,7 +10,7 @@ the same mid-sequence state:
     back = state_to_numpy(port_state)                # numpy leaves
 
 Containers are matched by class name (the states ``DDLOState``,
-``OdomState``, ``KeyframeStore``, ``TrackerState``, and the outputs
+``OdomState``, ``KeyframeStore``, ``TrackerState``, ``MapState``, and the outputs
 ``DetectionResult``, ``Objects``, ``TrackerOutputs``); leaves keep their
 dtype and shape. ``state_to_numpy`` takes any of them, so tests compare
 outputs field by field.
@@ -25,6 +25,7 @@ import torch
 
 from dynamic_direct_lidar_odometry_tpu_torch import pipeline
 from dynamic_direct_lidar_odometry_tpu_torch.detection import detection
+from dynamic_direct_lidar_odometry_tpu_torch.mapping import mapper
 from dynamic_direct_lidar_odometry_tpu_torch.odometry import keyframes, odometry
 from dynamic_direct_lidar_odometry_tpu_torch.ops import bbox
 from dynamic_direct_lidar_odometry_tpu_torch.tracking import tracker
@@ -36,6 +37,7 @@ _CLASSES = {
         odometry.OdomState,
         keyframes.KeyframeStore,
         tracker.TrackerState,
+        mapper.MapState,
         detection.DetectionResult,
         bbox.Objects,
         tracker.TrackerOutputs,

@@ -1,15 +1,19 @@
 """Scan sequences (the port's own copy of the JAX package's ``io/dataset.py``).
 
-A sequence is an organized scan stream:
+A sequence is an organized scan stream, on disk a ``.npz`` bundle in the
+JAX package's layout (either package reads the other's files):
 
   points:  (S, H*W, 3) float32, sensor frame, NaN for no-return
   mask:    (S, H*W)   bool
   stamps:  (S,)       float64 seconds
+  H, W:    ()         int
+  gt_poses (S, 4, 4) and imu_accel (N, 3), when known
 
 The renderers here are line for line the JAX package's, so one seed gives
 bit-identical scans in both (tests/test_torch_config.py checks it by
 checksum). Unlike the JAX package, nothing is cached in a file: every
-call renders afresh.
+call renders afresh. :func:`convert_rosbag` converts a reference bag
+when the ``rosbags`` reader is importable, and fails clearly otherwise.
 """
 
 from __future__ import annotations
@@ -30,6 +34,9 @@ class ScanSequence:
     H: int
     W: int
     gt_poses: Optional[np.ndarray] = None  # (S, 4, 4) if known
+    # buffered startup IMU linear accelerations for gravity alignment
+    # (odom.cc:534-597 buffers 1000 messages before the first scan)
+    imu_accel: Optional[np.ndarray] = None  # (N, 3)
 
     def __len__(self) -> int:
         return len(self.points)
@@ -37,6 +44,27 @@ class ScanSequence:
     def __iter__(self) -> Iterator[Tuple[np.ndarray, np.ndarray, float]]:
         for i in range(len(self)):
             yield self.points[i], self.mask[i], float(self.stamps[i])
+
+    def save(self, path: str) -> None:
+        data = dict(
+            points=self.points, mask=self.mask, stamps=self.stamps,
+            H=self.H, W=self.W,
+        )
+        if self.gt_poses is not None:
+            data["gt_poses"] = self.gt_poses
+        if self.imu_accel is not None:
+            data["imu_accel"] = self.imu_accel
+        np.savez_compressed(path, **data)
+
+    @staticmethod
+    def load(path: str) -> "ScanSequence":
+        d = np.load(path)
+        return ScanSequence(
+            points=d["points"], mask=d["mask"], stamps=d["stamps"],
+            H=int(d["H"]), W=int(d["W"]),
+            gt_poses=d["gt_poses"] if "gt_poses" in d else None,
+            imu_accel=d["imu_accel"] if "imu_accel" in d else None,
+        )
 
 
 def _render(world, poses, H, W, dt, movers, rng) -> ScanSequence:
@@ -131,3 +159,53 @@ def steady_state_sequence(
         ),
     ]
     return _render(world, poses, H, W, dt, movers, rng)
+
+
+def convert_rosbag(
+    bag_path: str,
+    topic: str,
+    H: int,
+    W: int,
+    out_path: str,
+) -> None:
+    """Convert a reference rosbag's PointCloud2 stream to a ScanSequence.
+
+    Requires the pure-python ``rosbags`` package (not a dependency); the
+    function exists so the reference's datasets (README.md:26-29) can be
+    converted where it is available.
+    """
+    try:
+        from rosbags.highlevel import AnyReader  # type: ignore
+        from rosbags.typesys import Stores, get_typestore  # noqa: F401
+    except ImportError as e:  # pragma: no cover
+        raise ImportError(
+            "rosbag conversion needs the 'rosbags' package; install it "
+            "or convert offline with scripts/convert_bag.py on a ROS host"
+        ) from e
+    import pathlib
+
+    from dynamic_direct_lidar_odometry_tpu_torch.io import pointcloud2 as pc2
+
+    pts_all, mask_all, stamps = [], [], []
+    with AnyReader([pathlib.Path(bag_path)]) as reader:  # pragma: no cover
+        conns = [c for c in reader.connections if c.topic == topic]
+        for conn, ts, raw in reader.messages(connections=conns):
+            msg = reader.deserialize(raw, conn.msgtype)
+            n = msg.height * msg.width
+            if n != H * W:
+                continue
+            pts, m = pc2.decode_scan(
+                bytes(msg.data), n, msg.point_step,
+                offsets=pc2.field_offsets(msg.fields),
+                is_bigendian=bool(msg.is_bigendian),
+            )
+            pts_all.append(pts)
+            mask_all.append(m)
+            stamps.append(ts * 1e-9)
+    ScanSequence(
+        points=np.stack(pts_all).astype(np.float32),
+        mask=np.stack(mask_all),
+        stamps=np.asarray(stamps),
+        H=H,
+        W=W,
+    ).save(out_path)

@@ -1,0 +1,180 @@
+"""Per-stage wall-clock profiling with the reference's stage taxonomy
+(counterpart of ``utils/profiling.py``).
+
+Re-design of ``util/accumulator.h`` (``AccumulatorData``: tick/tock into
+accumulators with last/mean/var/min/max, accumulator.h:15-52) and the
+console dashboard ``OdomNode::debug`` (odom.cc:1317-1461). Stage names
+match the reference so profiles line up:
+
+  total, odometry, dynamic                       (odom.cc:189-192)
+  projectScan, projectResiduals, groundRemoval,
+  cloudSegmentation, computeAllObjects, trackDetections
+                                                 (detection.cpp:64-69)
+
+CUDA work is asynchronous: ``tock`` optionally synchronizes the stream
+of a tensor it is given, so the interval covers the device work, and
+:func:`annotation` / :func:`trace` label and capture ``torch.profiler``
+device timelines.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import math
+import os
+import time
+from typing import Any, Dict, Optional
+
+import torch
+
+STAGES = (
+    "total",
+    "odometry",
+    "dynamic",
+    "projectScan",
+    "projectResiduals",
+    "groundRemoval",
+    "cloudSegmentation",
+    "computeAllObjects",
+    "trackDetections",
+)
+
+
+def _block_on(x: Any) -> None:
+    """Wait for the device work behind every CUDA tensor in ``x`` (a
+    tensor or a nested tuple / list / dict of them)."""
+    if isinstance(x, torch.Tensor):
+        if x.is_cuda:
+            torch.cuda.current_stream(x.device).synchronize()
+    elif isinstance(x, dict):
+        for v in x.values():
+            _block_on(v)
+    elif isinstance(x, (tuple, list)):
+        for v in x:
+            _block_on(v)
+
+
+class Accumulator:
+    """last/mean/var/min/max of tick-tock intervals (accumulator.h:15-52)."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self.n = 0
+        self.last = 0.0
+        self._mean = 0.0
+        self._m2 = 0.0
+        self.min = math.inf
+        self.max = -math.inf
+        self._t0: Optional[float] = None
+
+    def tick(self) -> None:
+        self._t0 = time.perf_counter()
+
+    def tock(self, block_on: Any = None) -> float:
+        if block_on is not None:
+            _block_on(block_on)
+        if self._t0 is None:
+            raise RuntimeError(f"tock({self.name}) without tick")
+        dt = (time.perf_counter() - self._t0) * 1e3  # ms
+        self._t0 = None
+        self.add(dt)
+        return dt
+
+    def add(self, value_ms: float) -> None:
+        self.n += 1
+        self.last = value_ms
+        d = value_ms - self._mean
+        self._mean += d / self.n
+        self._m2 += d * (value_ms - self._mean)
+        self.min = min(self.min, value_ms)
+        self.max = max(self.max, value_ms)
+
+    @property
+    def mean(self) -> float:
+        return self._mean
+
+    @property
+    def var(self) -> float:
+        return self._m2 / self.n if self.n > 1 else 0.0
+
+    def row(self) -> str:
+        if self.n == 0:
+            return f"{self.name:>20}:   (no samples)"
+        return (
+            f"{self.name:>20}: last {self.last:8.3f}  mean {self.mean:8.3f}"
+            f"  var {self.var:8.3f}  min {self.min:8.3f}  max {self.max:8.3f}"
+        )
+
+
+class Profiler:
+    """Named stage accumulators + dashboard (odom.cc:1387-1458)."""
+
+    def __init__(self, stages=STAGES):
+        self.acc: Dict[str, Accumulator] = {s: Accumulator(s) for s in stages}
+
+    def __getitem__(self, name: str) -> Accumulator:
+        if name not in self.acc:
+            self.acc[name] = Accumulator(name)
+        return self.acc[name]
+
+    @contextlib.contextmanager
+    def stage(self, name: str, block_on_result: bool = True):
+        """``with prof.stage("odometry") as h: h.value = step(...)``: also
+        labels the ``torch.profiler`` timeline with the stage."""
+        a = self[name]
+        with annotation(name):
+            a.tick()
+            holder = _Holder()
+            try:
+                yield holder
+            finally:
+                a.tock(holder.value if block_on_result else None)
+
+    def dashboard(self) -> str:
+        lines = ["DDLO timing [ms]"]
+        lines += [a.row() for a in self.acc.values() if a.n > 0]
+        return "\n".join(lines)
+
+
+def annotation(name: str):
+    """A bare ``torch.profiler`` range label without the wall-clock
+    accumulator, for pipelined loops that time dispatch to dispatch."""
+    return torch.profiler.record_function(name)
+
+
+class _Holder:
+    """``with prof.stage(..) as h: h.value = out`` to block on device work."""
+
+    value: Any = None
+
+
+def device_busy_us(prof) -> tuple:
+    """(busy microseconds, kernel count) of a finished ``torch.profiler``
+    session: the union of its device operations' intervals, so
+    overlapping kernels count once."""
+    iv = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, cur_s, cur_e = 0.0, None, None
+    for a, b in iv:
+        if cur_e is None or a > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = a, b
+        else:
+            cur_e = max(cur_e, b)
+    if cur_e is not None:
+        busy += cur_e - cur_s
+    return busy, len(iv)
+
+
+@contextlib.contextmanager
+def trace(dirname: str):
+    """Capture a ``torch.profiler`` host + CUDA trace around a block and
+    write it into ``dirname`` as a Chrome trace (``trace.json``)."""
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    os.makedirs(dirname, exist_ok=True)
+    with torch.profiler.profile(activities=acts) as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(dirname, "trace.json"))

@@ -9,8 +9,10 @@ import torch
 
 from torch_parity import plain_cfg, port_cfg
 
-from dynamic_direct_lidar_odometry_tpu_torch import pipeline
+from dynamic_direct_lidar_odometry_tpu_torch import pipeline, runner
 from dynamic_direct_lidar_odometry_tpu_torch.core import device
+from dynamic_direct_lidar_odometry_tpu_torch.io.dataset import ScanSequence
+from dynamic_direct_lidar_odometry_tpu_torch.mapping import mapper
 from dynamic_direct_lidar_odometry_tpu_torch.odometry import keyframes, odometry
 from dynamic_direct_lidar_odometry_tpu_torch.tracking import tracker
 
@@ -22,11 +24,19 @@ def _scan(cfg, seed=0):
     return pts, np.ones(n, bool)
 
 
+def _replay(cfg, pts, m):
+    seq = ScanSequence(points=np.stack([pts, pts]), mask=np.stack([m, m]), stamps=np.array([0.0, 0.1]),
+                       H=cfg.detection.rows, W=cfg.detection.columns)
+    return runner.replay(cfg, seq, map_capacity=1000).final_state.odom.T
+
+
 ENTRY_POINTS = {
     "pipeline.init_state": lambda cfg, pts, m: pipeline.init_state(cfg, pts, m).odom.T,
     "odometry.init_state": lambda cfg, pts, m: odometry.init_state(cfg, pts, m).T,
     "tracker.empty_state": lambda cfg, pts, m: tracker.empty_state(4).active,
     "keyframes.empty_store": lambda cfg, pts, m: keyframes.empty_store(2, 8).points,
+    "mapper.empty_map": lambda cfg, pts, m: mapper.empty_map(4).points,
+    "runner.replay": _replay,
 }
 
 

@@ -89,11 +89,6 @@ def test_dense_hull_masks_match_jax(scene):
     )
 
 
-def test_hulls_above_64_keyframes_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        kf.convex_hull_mask(torch.zeros(65, 3), torch.ones(65, dtype=torch.bool))
-
-
 def _filled_stores(K=16, P=32, n_kf=12, seed=0):
     """The same store in both packages: keyframes along a trajectory with
     front-packed clouds of different valid counts."""

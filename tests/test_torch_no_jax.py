@@ -2,7 +2,8 @@
 host) and never import the JAX package: in a subprocess with ``jax`` and
 ``dynamic_direct_lidar_odometry_tpu`` (and their submodules) blocked,
 import them and run one tiny full-DDLO step on the CPU through
-chip_smoke's own helper; and a static scan of their imports."""
+chip_smoke's own helper, two scans of ``runner.replay`` and the CLI's
+``synth``; and a static scan of their imports."""
 
 import os
 import re
@@ -52,6 +53,24 @@ poses_out, records = chip_smoke.run_slice(
 assert poses_out.shape == (2, 4, 4) and np.all(np.isfinite(poses_out))
 assert records[0]["s2m_converged"], records
 assert records[0]["detections"] > 0, records
+
+import os
+import tempfile
+
+from dynamic_direct_lidar_odometry_tpu_torch import cli, runner
+from dynamic_direct_lidar_odometry_tpu_torch.io import dataset
+
+seq = dataset.ScanSequence(
+    points=np.stack([s[0] for s in scans]), mask=np.stack([s[1] for s in scans]),
+    stamps=np.array([0.0, 0.1]), H=16, W=256,
+)
+with tempfile.TemporaryDirectory() as d:
+    res = runner.replay(cfg, seq, out_dir=d, map_capacity=20_000, device="cpu")
+    assert res.poses.shape == (1, 3) and np.all(np.isfinite(res.poses)), res.poses
+    assert os.path.exists(os.path.join(d, "map.pcd"))
+    path = os.path.join(d, "s.npz")
+    assert cli.main(["synth", "--scans", "2", "--rows", "8", "--cols", "64", "--out", path]) == 0
+    assert len(dataset.ScanSequence.load(path)) == 2
 bad = [m for m in sys.modules if m.split(".")[0] in BLOCKED and sys.modules[m] is not None]
 assert not bad, bad
 print("NO_JAX_OK")

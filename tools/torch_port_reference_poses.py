@@ -18,12 +18,31 @@ and with ``--dynamic`` (full DDLO, detection and tracking on)
   track_status (N-1, 3) int: active tracks per status
   (UNDEFINED, STATIC, DYNAMIC) after each scan.
 
+With ``--replay`` it runs the JAX package's replay surface instead
+(``runner.replay`` with ``hulls="device"``, the port's default) and
+writes, from ``bench_config()`` over the first N scans,
+``tests/golden/torch_port_replay_steady_jaxcpu.npz``; and from the
+configuration the JAX ``cli run`` builds for the 64 x 2048 sequence
+(``doals_config`` + ``capacity_for_scan``: 128 keyframes, a 65,536-point
+cloud, a 262,144-point submap) over the first ``--cli-scans`` scans,
+``tests/golden/torch_port_cli_steady_jaxcpu.npz``. Each holds
+
+  poses (S,3) f32, quats (S,4) f32 wxyz, stamps (S,), n_scans,
+  num_keyframes, map_points, dynamic_counts (S,) int, ate (m),
+  scans_sha256.
+
+The CLI run goes through the JAX ``cli.main(["run", ...])`` itself, with
+``runner.replay`` wrapped to pass ``hulls="device"``, so its
+configuration is the one ``_cmd_run`` builds. ``--replay bench`` or
+``--replay cli`` writes one of the two.
+
 ``chip_smoke.py`` holds the port's runs on the GPU against these (the
 GPU host has no JAX), and uses the checksum to refuse a different
 sequence.
 
     env JAX_PLATFORMS=cpu python tools/torch_port_reference_poses.py --scans 16
     env JAX_PLATFORMS=cpu python tools/torch_port_reference_poses.py --scans 16 --dynamic
+    env JAX_PLATFORMS=cpu python tools/torch_port_reference_poses.py --replay [bench|cli]
 """
 
 from __future__ import annotations
@@ -39,6 +58,74 @@ _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _GOLDEN = os.path.join(_ROOT, "tests", "golden")
 DEFAULT_OUT = os.path.join(_GOLDEN, "torch_port_dlo_steady_jaxcpu.npz")
 DYNAMIC_OUT = os.path.join(_GOLDEN, "torch_port_ddlo_steady_jaxcpu.npz")
+REPLAY_OUT = os.path.join(_GOLDEN, "torch_port_replay_steady_jaxcpu.npz")
+CLI_OUT = os.path.join(_GOLDEN, "torch_port_cli_steady_jaxcpu.npz")
+
+
+def _jax_sequence(seq, n):
+    from dynamic_direct_lidar_odometry_tpu.io import dataset
+
+    return dataset.ScanSequence(
+        points=seq.points[:n], mask=seq.mask[:n], stamps=seq.stamps[:n],
+        H=seq.H, W=seq.W, gt_poses=seq.gt_poses[:n],
+    )
+
+
+def _save_replay(path, res, seq, n, seconds):
+    from dynamic_direct_lidar_odometry_tpu import runner
+    from dynamic_direct_lidar_odometry_tpu_torch.utils import sequence
+
+    ate = runner.ate_rmse(res.poses, seq.gt_poses[:n])
+    np.savez(
+        path,
+        poses=np.asarray(res.poses, np.float32),
+        quats=np.asarray(res.quats, np.float32),
+        stamps=np.asarray(res.stamps, np.float64),
+        n_scans=np.int32(n),
+        num_keyframes=np.int32(res.num_keyframes),
+        map_points=np.int32(res.map_points),
+        dynamic_counts=np.asarray(res.dynamic_counts, np.int32),
+        ate=np.float64(ate),
+        scans_sha256=np.str_(sequence.sequence_sha256(seq, n)),
+    )
+    print(
+        f"wrote {path}: N={n} keyframes={res.num_keyframes} "
+        f"map_points={res.map_points} ATE={ate * 1e3:.3f} mm "
+        f"({seconds:.0f} s on the CPU)", flush=True,
+    )
+
+
+def replay_goldens(which: str, n_bench: int, n_cli: int) -> None:
+    import tempfile
+
+    from dynamic_direct_lidar_odometry_tpu import cli, config, runner
+    from dynamic_direct_lidar_odometry_tpu_torch.utils import sequence
+
+    seq = sequence.steady_state_sequence(64)
+    if which in ("all", "bench"):
+        t0 = time.perf_counter()
+        res = runner.replay(
+            config.bench_config(), _jax_sequence(seq, n_bench), hulls="device", progress=True
+        )
+        _save_replay(REPLAY_OUT, res, seq, n_bench, time.perf_counter() - t0)
+    if which in ("all", "cli"):
+        got = {}
+        real = runner.replay
+
+        def device_hulls(*a, **kw):
+            got["res"] = real(*a, **dict(kw, hulls="device"))
+            return got["res"]
+
+        t0 = time.perf_counter()
+        runner.replay = device_hulls
+        try:
+            with tempfile.TemporaryDirectory() as tmp:
+                path = os.path.join(tmp, "seq.npz")
+                _jax_sequence(seq, n_cli).save(path)
+                cli.main(["run", "--dataset", path])
+        finally:
+            runner.replay = real
+        _save_replay(CLI_OUT, got["res"], seq, n_cli, time.perf_counter() - t0)
 
 
 def main(argv=None) -> int:
@@ -46,6 +133,9 @@ def main(argv=None) -> int:
     ap.add_argument("--scans", type=int, default=16)
     ap.add_argument("--dynamic", action="store_true", help="full DDLO (detection + tracking)")
     ap.add_argument("--out", default=None)
+    ap.add_argument("--replay", nargs="?", const="all", choices=("all", "bench", "cli"),
+                    help="the replay goldens (runner.replay and cli run) instead")
+    ap.add_argument("--cli-scans", type=int, default=8)
     args = ap.parse_args(argv)
     out_path = args.out or (DYNAMIC_OUT if args.dynamic else DEFAULT_OUT)
 
@@ -57,6 +147,9 @@ def main(argv=None) -> int:
 
     if jax.default_backend() != "cpu":
         raise SystemExit("run with JAX_PLATFORMS=cpu: the reference is the CPU path")
+    if args.replay:
+        replay_goldens(args.replay, args.scans, args.cli_scans)
+        return 0
 
     cfg = config.bench_config(dynamic_detection=args.dynamic)
     seq = sequence.steady_state_sequence(64)

@@ -66,7 +66,7 @@ def main(argv=None) -> int:
     from dynamic_direct_lidar_odometry_tpu_torch.detection import detection
     from dynamic_direct_lidar_odometry_tpu_torch.odometry import odometry
     from dynamic_direct_lidar_odometry_tpu_torch.ops import hungarian, nn_cuda, segmentation
-    from dynamic_direct_lidar_odometry_tpu_torch.utils import sequence
+    from dynamic_direct_lidar_odometry_tpu_torch.utils import profiling, sequence
 
     dev = torch.device("cuda", 0)
     sync = torch.cuda.synchronize
@@ -176,17 +176,7 @@ def main(argv=None) -> int:
         e for e in prof.events()
         if e.device_type == torch.autograd.DeviceType.CUDA
     ]
-    iv = sorted((e.time_range.start, e.time_range.end) for e in kernels)
-    busy, cur_s, cur_e = 0.0, None, None
-    for s, e in iv:  # union of kernel intervals (us)
-        if cur_e is None or s > cur_e:
-            if cur_e is not None:
-                busy += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    if cur_e is not None:
-        busy += cur_e - cur_s
+    busy, _ = profiling.device_busy_us(prof)  # union of kernel intervals (us)
     by_name = collections.Counter()
     calls = collections.Counter()
     for e in kernels:
