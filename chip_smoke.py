@@ -78,9 +78,42 @@ Phases, in order; any failure exits non-zero and prints no result:
    (from the run's last checkpoint) and for 128- and 256-keyframe stores,
    which are also timed. A second run without artifacts gives the
    per-scan ``total`` and, with a profiled third, the idle share.
+11. The fork's kantplatz configuration at its published 512 x 512
+   (``kantplatz_config()``, the segmentation window 156..356, the camera
+   residual grid) with the CLI's capacity for such a dataset
+   (``capacity_for_scan(512, 512)``: 65,536 / 262,144 / K = 128 / 32
+   objects) over ``utils.sequence.kantplatz_sequence()`` (6 scans, checked
+   against the golden's checksum). Pass: poses within 10 mm of the JAX CPU
+   run (``tests/golden/torch_port_kantplatz512_jaxcpu.npz``), keyframe
+   flags equal, every S2M converged, no label outside the window, valid
+   detections within 10 % of JAX's total. Times: per-scan latency (CUDA
+   events, median after 2 warm-up scans), device busy ms and idle share.
+12. ``pipeline.step_chunk`` with K = 8 over ``bench_config()`` scans 1-8
+   against 8 ``pipeline.step`` calls on the card from the same state.
+   Pass: poses within 1e-6 m, keyframe flags and the store count equal.
+13. ``parallel.sharding.batched_align``: B = 8 S2M registrations at full
+   width (16,384 x 65,536: the sources, targets and guesses of phase 5's
+   last 8 S2M calls, recorded there; guess b moved by (0.03 (b + 1),
+   -0.02 b, 0) m and turned by 0.005 b rad, so every stream starts off
+   its optimum by its own amount) against 8 single-stream ``gicp.align``
+   calls. Pass: iterations and inliers equal, translation within 1e-5 m,
+   rotation within 1e-6; exactly one ``nn1_sparse_batched`` launch per
+   batched linearization and no ``nn1_sparse`` launch. Times:
+   registrations/s at B = 1 and B = 8 (CUDA events), and the batched
+   entry's device ms at the final poses against its bound.
+14. ``parallel.replay.replay_batch``: B = 4 streams x 8 scans of
+   ``bench_config()``, started at scans 0, 8, 16 and 24. Pass: poses
+   within 2e-4 m of single-stream ``pipeline.step`` runs of each stream
+   on the card.
+
+Phase 3 also holds the batched sparse entry (``nn1_sparse_batched``,
+8 stacked S2M problems: the submap, its ties, its long list and its
+sentinels) to its plain version and to 8 single calls, every row, and
+``covariance.regularize_plane`` on the card to the host's bits.
 
 The line before the last is the kernel table as JSON (``nn1_sparse``'s
-launches summed over phases 4, 5, 9 and 10); the last line is
+launches summed over phases 4, 5, 9, 10, 11, 12 and 14;
+``nn1_sparse_batched``'s from phase 13); the last line is
 ``{"ok": true, "device": {...}}`` (full runs only).
 """
 
@@ -103,12 +136,17 @@ GOLDEN_DLO = os.path.join(ROOT, "tests", "golden", "torch_port_dlo_steady_jaxcpu
 GOLDEN_DDLO = os.path.join(ROOT, "tests", "golden", "torch_port_ddlo_steady_jaxcpu.npz")
 GOLDEN_REPLAY = os.path.join(ROOT, "tests", "golden", "torch_port_replay_steady_jaxcpu.npz")
 GOLDEN_CLI = os.path.join(ROOT, "tests", "golden", "torch_port_cli_steady_jaxcpu.npz")
+GOLDEN_KANTPLATZ = os.path.join(ROOT, "tests", "golden", "torch_port_kantplatz512_jaxcpu.npz")
 DIVERGENCE_BAR_M = 0.010  # the ACCURACY_r05.json default-vs-exact bar
 DETECTION_BAR = 0.10  # total valid detections vs the JAX CPU run
 MAP_BAR = 0.02  # map points vs the JAX CPU replay
 DYNAMIC_BAR = 0.10  # dynamic pixels over the run vs the JAX CPU replay
 ATE_BAR_M = 0.05  # BASELINE.md's 5 cm
 RESUME_ATOL_M = 1e-5
+CHUNK_ATOL_M = 1e-6  # step_chunk against the same steps, one by one
+BATCH_T_ATOL_M, BATCH_R_ATOL = 1e-5, 1e-6  # batched_align against single aligns
+REPLAY_BATCH_ATOL_M = 2e-4  # tests/test_parallel.py:220-222's bar
+CHUNK_K, ALIGN_B, STREAMS, STREAM_SCANS = 8, 8, 4, 8
 WARMUP_SCANS = 2
 DENSE_SCANS = 8
 STATE_ATOL = 1e-4
@@ -118,6 +156,8 @@ KERNELS = {
                        replaces="dynamic_direct_lidar_odometry_tpu/ops/nn_pallas.py:181"),
     "nn1_dense": dict(source=f"{PKG}/csrc/nn1_sparse.cu",
                       replaces="dynamic_direct_lidar_odometry_tpu/ops/nn_pallas.py:89"),
+    "nn1_sparse_batched": dict(source=f"{PKG}/csrc/nn1_sparse.cu",
+                               replaces="dynamic_direct_lidar_odometry_tpu/ops/nn_pallas.py:181"),
     "knn_classes": dict(source=f"{PKG}/csrc/knn_classes.cu",
                         replaces="dynamic_direct_lidar_odometry_tpu/ops/nn_pallas.py:339"),
     "knn_classes_sparse": dict(source=f"{PKG}/csrc/knn_classes.cu",
@@ -234,6 +274,7 @@ def run_slice(cfg, points, masks, stamps, device, timed: bool = False, keep=None
     import torch
 
     from dynamic_direct_lidar_odometry_tpu_torch import pipeline
+    from dynamic_direct_lidar_odometry_tpu_torch.detection import detection
 
     state = pipeline.init_state(cfg, points[0], masks[0], float(stamps[0]), device=device)
     poses = [state.odom.T.cpu().numpy()]
@@ -259,6 +300,8 @@ def run_slice(cfg, points, masks, stamps, device, timed: bool = False, keep=None
             detections=int(out.detections.objects.valid.sum()),
             status=[int((st == s).sum()) for s in range(3)],
         )
+        if cfg.detection.window_row_min is not None:
+            rec["outside_window"] = detection.labels_outside_window(cfg, out.detections.labels)
         if timed:
             rec["ms"] = a.elapsed_time(b)
         if i == keep:
@@ -271,6 +314,11 @@ def run_slice(cfg, points, masks, stamps, device, timed: bool = False, keep=None
         poses.append(out.odom.T.cpu().numpy())
         records.append(rec)
     return np.stack(poses), records
+
+
+def rot_err(Ra, Rb) -> float:
+    """||Ra - Rb||_F / sqrt(2): the rotation angle between them, to first order."""
+    return float(np.linalg.norm(np.asarray(Ra, np.float64) - np.asarray(Rb, np.float64)) / np.sqrt(2.0))
 
 
 def kernel_inputs(cfg, seq, ref_poses, device):
@@ -368,6 +416,7 @@ def ptxas_report(log: str) -> dict:
 
 
 KERNEL_NAMES = {"nn1_sparse": "nn1_kernel<false>", "nn1_dense": "nn1_kernel<true>",
+                "nn1_sparse_batched": "nn1_kernel<false>",
                 "knn_classes": "knn_classes_kernel<false>",
                 "knn_classes_sparse": "knn_classes_kernel<true>"}
 
@@ -451,6 +500,84 @@ def check_sparse(name, query, target, radius):
         active_chunk_share=float(counts.float().mean()) / lists.shape[1],
         max_tile_chunks=int(counts.max()),
     )
+
+
+def check_sparse_batched(name, queries, targets, radius):
+    """The batched sparse entry (B stacked problems, one launch) against
+    its plain version and against B single-problem kernel calls on the
+    same lists: identical index and distance on every row."""
+    import torch
+
+    from dynamic_direct_lidar_odometry_tpu_torch.ops import nn_cuda
+
+    B, Q = queries.shape[:2]
+    q_tile, t_chunk = 1024, 512
+    prep = nn_cuda.prepare_sparse_targets(targets, t_chunk)
+    n_chunks = prep.t_lo.shape[1]
+    t_stream = prep.tt.shape[1] // B
+    q = nn_cuda._pad_dim1(queries, q_tile, 1.0e6)
+    n_tiles = q.shape[1] // q_tile
+    counts, lists = nn_cuda.sparse_chunk_lists(
+        nn_cuda._tile_overlap(q, prep.t_lo, prep.t_hi, radius, q_tile).flatten(0, 1))
+    lists = lists + (torch.arange(B, dtype=torch.int32, device=q.device) * n_chunks).repeat_interleave(n_tiles)[:, None]
+    qs = q.reshape(-1, 3).contiguous()
+    args = (qs, prep.tt, counts, lists, q_tile, t_chunk, n_tiles, t_stream)
+    ik, dk = nn_cuda.nn1_sparse_batched_chunks(*args)
+    ir, dr = nn_cuda.nn1_sparse_batched_reference(*args)
+    single_i, single_d = [], []
+    for b in range(B):
+        one = nn_cuda.prepare_sparse_target(targets[b], t_chunk)
+        c, lst = nn_cuda.tile_chunk_lists(q[b].contiguous(), one, radius, q_tile)
+        i1, d1 = nn_cuda.nn1_sparse_chunks(q[b].contiguous(), one.tt, c, lst, q_tile, t_chunk)
+        single_i.append(i1)
+        single_d.append(d1)
+    torch.cuda.synchronize()
+    same_plain = bool(torch.equal(ik, ir) and torch.equal(dk, dr))
+    same_single = bool(torch.equal(ik, torch.cat(single_i)) and torch.equal(dk, torch.cat(single_d)))
+    err = float((dk - dr).abs().max())
+    check(same_plain, f"nn1_sparse_batched {name}: kernel differs from its plain version (max |d| {err})")
+    check(same_single, f"nn1_sparse_batched {name}: differs from {B} single calls")
+    pairs = float(counts.sum()) * q_tile * t_chunk
+    return _record(
+        "nn1_sparse_batched", name, B * Q, targets.shape[1], err, same_plain and same_single,
+        pairs, (qs.numel() + prep.tt.numel()) * 4 + 8 * B * Q,
+        lambda: nn_cuda.nn1_sparse_batched_chunks(*args),
+        cuda_ms(lambda: nn_cuda.nn1_sparse_batched_reference(*args)), None,
+        radius=radius, B=B, in_radius=int((dr < radius * radius).sum()),
+        rows_identical_to_single_calls=same_single, max_tile_chunks=int(counts.max()),
+    )
+
+
+def check_regularize(query, k):
+    """``covariance.regularize_plane`` on the card against the host, from
+    the same covariances (the window path's at the bench scan, plus
+    near-collinear and denormal-sized ones): every row bit-equal."""
+    import torch
+
+    from dynamic_direct_lidar_odometry_tpu_torch.ops import covariance
+
+    raw = covariance._window_self_covariances(query, k)
+    rng = np.random.default_rng(5)
+    d = rng.standard_normal((4096, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    pts = (rng.uniform(-1, 1, (4096, 10, 1)) * d[:, None]
+           + rng.standard_normal((4096, 10, 3)) * 10.0 ** rng.uniform(-6, 0, (4096, 1, 1)))
+    c = pts - pts.mean(1, keepdims=True)
+    deg = (np.einsum("nki,nkj->nij", c, c) / 10).astype(np.float32)
+    deg[:64] *= np.float32(1e-19)
+    raw = torch.cat([raw, torch.as_tensor(deg, device=raw.device)])
+    real = torch.isfinite(raw).all(dim=(1, 2)).cpu()
+    card = covariance.regularize_plane(raw).cpu()
+    host = covariance.regularize_plane(raw.cpu())
+    same = (card == host) | (card.isnan() & host.isnan())
+    off = ~same.reshape(len(raw), -1).all(dim=1) & real
+    rec = dict(rows=int(real.sum()), rows_not_bit_equal=int(off.sum()),
+               max_abs=float(torch.nan_to_num(card - host)[real].abs().max()),
+               card_ms=cuda_ms(lambda: covariance.regularize_plane(raw[: query.shape[0]]), reps=10),
+               device_ops_per_call=device_busy_ms(lambda: covariance.regularize_plane(raw[: query.shape[0]]))[1])
+    print("regularize_plane card-vs-host " + json.dumps(rec), flush=True)
+    check(rec["rows_not_bit_equal"] == 0, f"regularize_plane: {rec['rows_not_bit_equal']} rows differ card vs host")
+    return rec
 
 
 def check_dense(name, query, target):
@@ -847,13 +974,221 @@ def cli_phase(seq, ref, card):
     return launches
 
 
+def kantplatz_phase(card):
+    """Phase 11: ``kantplatz_config()`` at 512 x 512 on the card."""
+    import dataclasses
+
+    from dynamic_direct_lidar_odometry_tpu_torch import config
+    from dynamic_direct_lidar_odometry_tpu_torch.ops import nn_cuda
+    from dynamic_direct_lidar_odometry_tpu_torch.utils import sequence
+
+    ref = np.load(GOLDEN_KANTPLATZ)
+    t0 = time.perf_counter()
+    seq = sequence.kantplatz_sequence()
+    n = len(seq)
+    check(sequence.sequence_sha256(seq, n) == str(ref["scans_sha256"]),
+          "the kantplatz scans differ from the reference sequence")
+    cfg = dataclasses.replace(config.kantplatz_config(), capacity=config.capacity_for_scan(512, 512))
+    render_s = time.perf_counter() - t0
+    nn_cuda.LAUNCHES.clear()
+    poses, steps = run_slice(cfg, seq.points, seq.mask, seq.stamps, "cuda", timed=True)
+    launches = nn_cuda.LAUNCHES["nn1_sparse"]
+    summary, div = slice_summary("kantplatz", poses, steps, ref, seq, n, card)
+    busy, ops = device_busy_ms(lambda: run_slice(cfg, seq.points, seq.mask, seq.stamps, "cuda"))
+    dets, jax_dets = [r["detections"] for r in steps], ref["detections"].tolist()
+    mean_ms = statistics.mean(summary["step_ms"])
+    summary.update(
+        render_s=render_s, capacity=dict(max_points=cfg.capacity.max_points,
+                                         max_submap_points=cfg.capacity.max_submap_points,
+                                         max_keyframes=cfg.capacity.max_keyframes,
+                                         max_keyframe_points=cfg.capacity.max_keyframe_points,
+                                         max_objects=cfg.capacity.max_objects),
+        window=[cfg.detection.window_row_min, cfg.detection.window_row_max,
+                cfg.detection.window_col_min, cfg.detection.window_col_max],
+        detections=dets, detections_jax=jax_dets,
+        outside_window=[r["outside_window"] for r in steps],
+        device_busy_ms_per_scan=busy / (n - 1), device_ops_per_scan=ops / (n - 1),
+        device_idle_share=1.0 - busy / (n - 1) / mean_ms, mean_ms=mean_ms,
+        launches=dict(nn1_sparse=launches),
+    )
+    print("kantplatz " + json.dumps(summary), flush=True)
+    check(div <= DIVERGENCE_BAR_M, f"kantplatz poses diverge {div * 1e3:.3f} mm from JAX")
+    check(summary["keyframe_flags_match_jax"], "kantplatz keyframe flags differ from JAX")
+    check(all(v == 0 for v in summary["outside_window"]), "kantplatz: a label outside the window")
+    check(abs(sum(dets) - sum(jax_dets)) <= DETECTION_BAR * sum(jax_dets),
+          f"kantplatz: {sum(dets)} valid detections against {sum(jax_dets)} in the JAX run")
+    check(launches >= 3 * (n - 1), f"nn1_sparse launched {launches} times in {n - 1} scans")
+    return launches
+
+
+def chunk_phase(cfg, seq, dev):
+    """Phase 12: ``pipeline.step_chunk`` against the same steps one by one."""
+    import torch
+
+    from dynamic_direct_lidar_odometry_tpu_torch import pipeline
+    from dynamic_direct_lidar_odometry_tpu_torch.ops import nn_cuda
+
+    K = CHUNK_K
+    st0 = pipeline.init_state(cfg, seq.points[0], seq.mask[0], float(seq.stamps[0]), device=dev)
+    pts = torch.as_tensor(seq.points[1 : K + 1], device=dev)
+    msk = torch.as_tensor(seq.mask[1 : K + 1], device=dev)
+    ts = torch.as_tensor(seq.stamps[1 : K + 1], dtype=torch.float32, device=dev)
+    st, poses, added = st0, [], []
+    for k in range(K):
+        st, out = pipeline.step(cfg, st, pts[k], msk[k], ts[k])
+        poses.append(out.odom.T)
+        added.append(bool(out.keyframe_added))
+    nn_cuda.LAUNCHES.clear()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    st_c, outs = pipeline.step_chunk(cfg, st0, pts, msk, ts)
+    b.record()
+    b.synchronize()
+    launches = nn_cuda.LAUNCHES["nn1_sparse"]
+    err = float((outs.odom.T[:, :3, 3] - torch.stack(poses)[:, :3, 3]).abs().max())
+    rec = dict(K=K, max_abs_m=err, chunk_ms_per_scan=a.elapsed_time(b) / K,
+               keyframe_flags=outs.keyframe_added.tolist(), store_count=int(st_c.odom.store.count),
+               launches=dict(nn1_sparse=launches))
+    print("step_chunk " + json.dumps(rec), flush=True)
+    check(err <= CHUNK_ATOL_M, f"step_chunk moved a pose by {err} m")
+    check(outs.keyframe_added.tolist() == added, "step_chunk keyframe flags differ")
+    check(int(st_c.odom.store.count) == int(st.odom.store.count), "step_chunk store count differs")
+    check(tuple(outs.detections.labels.shape[:1]) == (K,), "step_chunk outputs not stacked")
+    check(launches >= 3 * K, f"nn1_sparse launched {launches} times in {K} scans")
+    return launches
+
+
+@contextlib.contextmanager
+def s2m_calls(keep: int):
+    """Record the arguments of the last ``keep`` S2M ``gicp.align`` calls
+    (those exporting residuals) while the pipeline runs."""
+    from dynamic_direct_lidar_odometry_tpu_torch.ops import gicp
+
+    calls, real = [], gicp.align
+
+    def align(*a, **kw):
+        settings = a[7] if len(a) > 7 else kw.get("settings")
+        if settings is not None and settings.compute_residuals:
+            calls.append((a[:7], settings))
+            del calls[:-keep]
+        return real(*a, **kw)
+
+    gicp.align = align
+    try:
+        yield calls
+    finally:
+        gicp.align = real
+
+
+def batched_align_phase(calls, card):
+    """Phase 13: ``batched_align`` of phase 5's last 8 S2M registrations
+    against 8 single-stream aligns, on the card."""
+    import torch
+
+    from dynamic_direct_lidar_odometry_tpu_torch.core import se3
+    from dynamic_direct_lidar_odometry_tpu_torch.ops import gicp, nn_cuda
+    from dynamic_direct_lidar_odometry_tpu_torch.parallel import sharding
+
+    check(len(calls) == ALIGN_B, f"phase 5 recorded {len(calls)} S2M registrations")
+    settings = calls[0][1]
+    # each guess moved by (0.03 (b + 1), -0.02 b, 0) m and turned by
+    # 0.005 b rad: every stream starts off its optimum by its own amount
+    moved = []
+    for b, (args, _) in enumerate(calls):
+        th = 0.005 * b
+        d = torch.eye(4, device=args[6].device)
+        d[:2, :2] = torch.tensor([[np.cos(th), -np.sin(th)], [np.sin(th), np.cos(th)]])
+        d[:3, 3] = torch.tensor([0.03 * (b + 1), -0.02 * b, 0.0])
+        moved.append(args[:6] + (d @ args[6],))
+    calls = [(a, settings) for a in moved]
+    batch = [torch.stack([c[0][i] for c in calls]) for i in range(7)]
+    singles = [gicp.align(*c[0], settings) for c in calls]
+    mesh = sharding.make_mesh()
+    aligner = sharding.batched_align(mesh, settings)
+    nn_cuda.LAUNCHES.clear()
+    res = aligner(*batch)
+    torch.cuda.synchronize()
+    got = dict(nn_cuda.LAUNCHES)
+    iters = res.iterations.tolist()
+    lin = max(iters) + (1 if settings.compute_residuals else 0)
+    t_err = max(float((res.T[b, :3, 3] - s.T[:3, 3]).abs().max()) for b, s in enumerate(singles))
+    r_err = max(rot_err(res.T[b, :3, :3].cpu(), s.T[:3, :3].cpu()) for b, s in enumerate(singles))
+
+    def per_s(B):
+        args = [x[:B] for x in batch]
+        return B / (cuda_ms(lambda: gicp.align_batch(*args, settings), reps=5) / 1e3)
+
+    single_ms = cuda_ms(lambda: [gicp.align(*c[0], settings) for c in calls], reps=3) / ALIGN_B
+    # the batched entry at the final poses: device time against B x the single call's bound
+    src_t = torch.where(batch[1][..., None], se3.transform_points(res.T, batch[0]), 1.0e6)
+    tgt_q = torch.where(batch[4][..., None], batch[3], 1.0e6)
+    prep = nn_cuda.prepare_sparse_targets(tgt_q)
+    r = settings.max_correspondence_distance
+    dev_t = device_times(lambda: nn_cuda.nn1_sparse_batched_prepared(src_t, prep, r), "nn1_kernel")
+    q = nn_cuda._pad_dim1(src_t, 1024, 1.0e6)
+    counts = nn_cuda._tile_overlap(q, prep.t_lo, prep.t_hi, r, 1024).sum()
+    b_ms, b_by = bound_ms(float(counts) * 1024 * 512, (q.numel() + prep.tt.numel()) * 4 + 8 * q.shape[0] * q.shape[1])
+    rec = dict(
+        B=ALIGN_B, card=card, iterations=iters, single_iterations=[int(s.iterations) for s in singles],
+        inliers=res.num_inliers.tolist(), single_inliers=[int(s.num_inliers) for s in singles],
+        translation_max_abs_m=t_err, rotation_max=r_err, launches=got, batched_linearizations=lin,
+        registrations_per_s_b1=per_s(1), registrations_per_s_b8=per_s(ALIGN_B),
+        registrations_per_s_single_loop=1e3 / single_ms,
+        batched_entry_ms=dev_t["ms"], batched_entry_kernel_ms=dev_t["kernel_ms"],
+        batched_entry_bound_ms=b_ms, batched_entry_bound_by=b_by,
+    )
+    print("batched_align " + json.dumps(rec), flush=True)
+    check(iters == rec["single_iterations"], "batched_align iterations differ from single aligns")
+    check(rec["inliers"] == rec["single_inliers"], "batched_align inliers differ from single aligns")
+    check(t_err <= BATCH_T_ATOL_M and r_err <= BATCH_R_ATOL,
+          f"batched_align differs from single aligns by {t_err} m, {r_err} rad")
+    check(got.get("nn1_sparse_batched", 0) == lin and got.get("nn1_sparse", 0) == 0,
+          f"batched_align launched {got} for {lin} batched linearizations")
+    return got.get("nn1_sparse_batched", 0)
+
+
+def replay_batch_phase(cfg, seq, card):
+    """Phase 14: ``replay_batch`` of 4 streams x 8 scans against each
+    stream run alone through ``pipeline.step`` on the card."""
+    import torch
+
+    from dynamic_direct_lidar_odometry_tpu_torch import pipeline
+    from dynamic_direct_lidar_odometry_tpu_torch.ops import nn_cuda
+    from dynamic_direct_lidar_odometry_tpu_torch.parallel import replay
+
+    starts = [STREAM_SCANS * b for b in range(STREAMS)]
+    sl = [slice(s0, s0 + STREAM_SCANS) for s0 in starts]
+    pts = np.stack([seq.points[s] for s in sl])
+    msk = np.stack([seq.mask[s] for s in sl])
+    ts = np.stack([seq.stamps[s] for s in sl])
+    nn_cuda.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    res = replay.replay_batch(cfg, pts, msk, ts)
+    wall = time.perf_counter() - t0
+    launches = nn_cuda.LAUNCHES["nn1_sparse"]
+    err = 0.0
+    for b in range(STREAMS):
+        st = pipeline.init_state(cfg, pts[b, 0], msk[b, 0], float(np.float32(ts[b, 0])))
+        for k in range(1, STREAM_SCANS):
+            st, out = pipeline.step(cfg, st, pts[b, k], msk[b, k], float(np.float32(ts[b, k])))
+            err = max(err, float(np.abs(out.odom.pose.cpu().numpy() - res.poses[b, k - 1]).max()))
+    rec = dict(streams=STREAMS, scans=STREAM_SCANS, starts=starts, max_abs_m=err,
+               ms_per_stream_scan=wall * 1e3 / (STREAMS * (STREAM_SCANS - 1)),
+               num_keyframes=res.num_keyframes.tolist(), launches=dict(nn1_sparse=launches), card=card)
+    print("replay_batch " + json.dumps(rec), flush=True)
+    check(res.poses.shape == (STREAMS, STREAM_SCANS - 1, 3), f"replay_batch poses {res.poses.shape}")
+    check(err <= REPLAY_BATCH_ATOL_M, f"replay_batch differs from single streams by {err} m")
+    check(launches >= 3 * STREAMS * (STREAM_SCANS - 1), f"nn1_sparse launched {launches} times")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Smoke check of the PyTorch port on one GPU")
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10",
+    ap.add_argument("--phases", default=",".join(str(p) for p in range(1, 15)),
                     help="comma-separated subset; the check is the full run")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
-    full = phases == set(range(1, 11))
+    full = phases == set(range(1, 15))
 
     import torch
 
@@ -890,7 +1225,7 @@ def main(argv=None) -> int:
         ptxas.update(ptxas_report(b.log))
     print("ptxas " + json.dumps(ptxas), flush=True)
     if all(b.seconds for b in built.values()):  # a library built earlier has no report
-        check(set(ptxas) >= set(KERNELS) and all(v.get("spill_bytes") == 0 for v in ptxas.values()),
+        check(set(ptxas) >= set(PTXAS_NAMES.values()) and all(v.get("spill_bytes") == 0 for v in ptxas.values()),
               f"ptxas reports a spill or misses a kernel: {ptxas}")
 
     ref_dlo, ref_ddlo = np.load(GOLDEN_DLO), np.load(GOLDEN_DDLO)
@@ -900,7 +1235,7 @@ def main(argv=None) -> int:
     cfg_dlo = config.bench_config(dynamic_detection=False)
     cfg = config.bench_config()
     seq = None
-    if phases & set(range(3, 11)):
+    if phases & (set(range(3, 15)) - {11}):
         t0 = time.perf_counter()
         seq = sequence.steady_state_sequence(64)
         print(f"sequence: 64 scans {seq.H}x{seq.W} in {time.perf_counter() - t0:.1f} s (host)", flush=True)
@@ -948,8 +1283,18 @@ def main(argv=None) -> int:
                           prune_radius=5.0, t_chunk=128),
             check_classes(f"cov_k{k}_r5_empty_tile", query, query, k, prune_radius=5.0, empty_tile=2),
         ]
+        # 8 stacked S2M problems: the submap, its long list, its ties, its
+        # sentinels (padded to the common shape), moved and rolled copies
+        big = torch.full((s2m_t.shape[0] - odd_t.shape[0], 3), 1.0e6, device=dev)
+        odd_tp = torch.cat([odd_t, big])
+        odd_qp = torch.cat([odd_q, torch.full((query.shape[0] - odd_q.shape[0], 3), 1.0e6, device=dev)])
+        bq = torch.stack([query, long_q, query, odd_qp, query + 0.3, query, query.roll(511, 0), long_q])
+        bt = torch.stack([s2m_t, long_t, ties_t, odd_tp, s2m_t, s2m_t + 0.05, ties_t, long_t])
+        recs += [check_sparse_batched("s2m_b8", bq, bt, s2m_r),
+                 check_sparse_batched("s2m_residual_b8", bq, bt, 3.0 * s2m_r)]
         for r in recs:
             records.setdefault(r["kernel"], []).append(r)
+        check_regularize(query, k)
 
     launches = {}
     sparse_launches = {}  # nn1_sparse per phase that runs it, each read right after it
@@ -967,13 +1312,15 @@ def main(argv=None) -> int:
 
     keep = n // 2
     inputs = None
-    if phases & {5, 6}:
+    s2m = []
+    if phases & {5, 6, 13}:
         # ---- 5. full DDLO, default backends ----
         nn_cuda.LAUNCHES.clear()
         segmentation.SWEEPS.clear()
         hungarian.HOST_READS.clear()
-        poses, steps = run_slice(cfg, seq.points[:n], seq.mask[:n], seq.stamps[:n], dev,
-                                 timed=True, keep=keep)
+        with s2m_calls(ALIGN_B) as s2m:
+            poses, steps = run_slice(cfg, seq.points[:n], seq.mask[:n], seq.stamps[:n], dev,
+                                     timed=True, keep=keep)
         sparse_launches[5] = nn_cuda.LAUNCHES["nn1_sparse"]
         linz = sum(r["s2s_iterations"] + r["s2m_iterations"] + 1 for r in steps)
         inputs = steps[keep - 1].pop("inputs")
@@ -1041,6 +1388,22 @@ def main(argv=None) -> int:
     if 10 in phases:
         # ---- 10. the CLI at its own capacity (blocked hulls) ----
         sparse_launches[10] = cli_phase(seq, ref_cli, card)
+
+    if 11 in phases:
+        # ---- 11. kantplatz at 512 x 512 ----
+        sparse_launches[11] = kantplatz_phase(card)
+
+    if 12 in phases:
+        # ---- 12. step_chunk ----
+        sparse_launches[12] = chunk_phase(cfg, seq, dev)
+
+    if 13 in phases:
+        # ---- 13. batched_align: one batched sparse launch per linearization ----
+        launches["nn1_sparse_batched"] = batched_align_phase(s2m, card)
+
+    if 14 in phases:
+        # ---- 14. replay_batch ----
+        sparse_launches[14] = replay_batch_phase(cfg, seq, card)
     launches["nn1_sparse"] = sum(sparse_launches.values())
     print(f"nn1_sparse launches by phase: {json.dumps(sparse_launches)}", flush=True)
 
@@ -1060,7 +1423,7 @@ def main(argv=None) -> int:
             plain_ms=main_case["plain_ms"],
             bound_ms=main_case["bound_ms"], bound_by=main_case["bound_by"],
             library_ms=None, cdist_ms=main_case["cdist_ms"], case=main_case["case"],
-            **ptxas.get(name, {}),
+            **ptxas.get("nn1_sparse" if name == "nn1_sparse_batched" else name, {}),
         ))
     print(card)  # name, power.limit exactly as nvidia-smi prints them
     print(json.dumps({"kernels": kernels}))

@@ -10,6 +10,8 @@ import math
 
 import torch
 
+from dynamic_direct_lidar_odometry_tpu_torch.core import device as device_mod
+
 _EPS = 1e-12
 
 
@@ -154,6 +156,10 @@ def transform_points(T: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
         + pts[..., 2:3] * R[..., None, :, 2]
     )
     return out + T[..., None, :3, 3]
+
+
+def identity(dtype=torch.float32, *, device="cuda") -> torch.Tensor:
+    return torch.eye(4, dtype=dtype, device=device_mod.resolve(device))
 
 
 def compose(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:

@@ -6,7 +6,16 @@
 //     among the chunks lists[i, :counts[i]] (CSR: counts + ascending chunk
 //     ids, built in torch by ops/nn_cuda.py from the tile's box);
 //   - _nn1_kernel (ddlo_nn1_dense): the same over every chunk of the padded
-//     target, with no list.
+//     target, with no list;
+//   - _nn1_sparse_kernel under jax.vmap (ddlo_nn1_sparse_batched): B
+//     independent sparse problems in one launch. The B padded targets are
+//     stacked along the columns of tt (t_stream columns each), the B query
+//     sets along the rows of q (tiles_per_stream tiles each), and tile t's
+//     list holds stream t / tiles_per_stream's chunk ids offset by that
+//     stream's first chunk, so every list stays ascending and the tie rule
+//     holds within the stream. The kernel packs the stream-local index
+//     (column - stream * t_stream) into the key, so the output needs no
+//     second pass; the local order is the global order within a stream.
 // Same function as the TPU kernels, bit for bit:
 //   - d = (dx*dx + dy*dy) + dz*dz by direct differencing, with
 //     __fsub_rn/__fmul_rn/__fadd_rn and the library built with --fmad=false,
@@ -103,6 +112,7 @@ __global__ void __launch_bounds__(kThreads) nn1_kernel(
     const int* __restrict__ counts,    // (n_tiles,) active chunks per tile (sparse)
     const int* __restrict__ lists,     // (n_tiles, n_chunks) ascending chunk ids (sparse)
     int Qp, int Tp, int n_chunks, int q_tile, int t_chunk,
+    int tiles_per_stream, int t_stream,  // batched sparse: index offset per stream
     unsigned long long* __restrict__ keys)  // (Qp,) packed (bits(d) << 32) | j, min-merged
 {
   __shared__ __align__(16) float ring[kRing][3][kStage];
@@ -111,10 +121,12 @@ __global__ void __launch_bounds__(kThreads) nn1_kernel(
   const int per_chunk = t_chunk / kStage;
   int units = n_chunks * per_chunk;
   const int* lst = nullptr;
+  int j0 = 0;  // first column of this block's stream (0 unless batched)
   if (!kDense) {
     const int tile = row0 / q_tile;    // uniform over the block (q_tile % kRows == 0)
     units = counts[tile] * per_chunk;
     lst = lists + static_cast<long long>(tile) * n_chunks;
+    j0 = (tile / tiles_per_stream) * t_stream;
   }
   // this split's run of units [u0, u0 + n_st): uniform over the block
   const int per_split = (units + gridDim.y - 1) / gridDim.y;
@@ -210,20 +222,21 @@ __global__ void __launch_bounds__(kThreads) nn1_kernel(
     const int row = row0 + threadIdx.x + r * kThreads;
     const unsigned long long key =
         (static_cast<unsigned long long>(__float_as_uint(bd[r])) << 32) |
-        static_cast<unsigned int>(bi[r]);
+        static_cast<unsigned int>(bi[r] - j0);
     if ((kDense ? row < Qp : true) && key < init) atomicMin(keys + row, key);
   }
 }
 
 template <bool kDense>
 int launch(const void* q, const void* tt, const void* counts, const void* lists,
-           int Qp, int Tp, int n_chunks, int q_tile, int t_chunk, int splits,
-           void* keys, void* stream) {
+           int Qp, int Tp, int n_chunks, int q_tile, int t_chunk,
+           int tiles_per_stream, int t_stream, int splits, void* keys, void* stream) {
   const dim3 grid((Qp + kRows - 1) / kRows, splits);
   nn1_kernel<kDense><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(q), static_cast<const float*>(tt),
       static_cast<const int*>(counts), static_cast<const int*>(lists),
-      Qp, Tp, n_chunks, q_tile, t_chunk, static_cast<unsigned long long*>(keys));
+      Qp, Tp, n_chunks, q_tile, t_chunk, tiles_per_stream, t_stream,
+      static_cast<unsigned long long*>(keys));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -254,13 +267,26 @@ extern "C" int ddlo_nn1_sparse(
     int Qp, int Tp, int n_chunks, int q_tile, int t_chunk, int splits,
     void* keys, void* stream)
 {
-  return launch<false>(q, tt, counts, lists, Qp, Tp, n_chunks, q_tile, t_chunk, splits,
-                       keys, stream);
+  return launch<false>(q, tt, counts, lists, Qp, Tp, n_chunks, q_tile, t_chunk,
+                       1 << 30, 0, splits, keys, stream);
+}
+
+// B stacked sparse problems (see the top of the file): q (B * tiles_per_stream
+// * q_tile, 3), tt (3, Tp = B * t_stream), counts and lists per stacked tile,
+// the lists' row stride n_chunks (one stream's chunk count). The index in
+// each key is local to the query's stream.
+extern "C" int ddlo_nn1_sparse_batched(
+    const void* q, const void* tt, const void* counts, const void* lists,
+    int Qp, int Tp, int n_chunks, int q_tile, int t_chunk,
+    int tiles_per_stream, int t_stream, int splits, void* keys, void* stream)
+{
+  return launch<false>(q, tt, counts, lists, Qp, Tp, n_chunks, q_tile, t_chunk,
+                       tiles_per_stream, t_stream, splits, keys, stream);
 }
 
 extern "C" int ddlo_nn1_dense(
     const void* q, const void* tt, int Qp, int Tp, int splits, void* keys, void* stream)
 {
-  return launch<true>(q, tt, nullptr, nullptr, Qp, Tp, Tp / kStage, Qp, kStage, splits,
-                      keys, stream);
+  return launch<true>(q, tt, nullptr, nullptr, Qp, Tp, Tp / kStage, Qp, kStage,
+                      1 << 30, 0, splits, keys, stream);
 }

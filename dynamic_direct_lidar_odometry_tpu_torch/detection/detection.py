@@ -40,6 +40,17 @@ def _window_mask(cfg: DDLOConfig, device) -> torch.Tensor | None:
     )
 
 
+def labels_outside_window(cfg: DDLOConfig, labels) -> int:
+    """Labelled pixels of an (H, W) label image outside the segmentation
+    window (0 without one): the window's check in the port's tests, the
+    kantplatz golden and ``chip_smoke.py``."""
+    labels = torch.as_tensor(labels)
+    inside = _window_mask(cfg, labels.device)
+    if inside is None:
+        return 0
+    return int(((labels >= 0) & ~inside).sum())
+
+
 def detect(
     cfg: DDLOConfig,
     seg_points_world: torch.Tensor,  # (H*W, 3) organized, world frame

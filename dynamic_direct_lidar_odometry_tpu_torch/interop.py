@@ -13,7 +13,10 @@ Containers are matched by class name (the states ``DDLOState``,
 ``OdomState``, ``KeyframeStore``, ``TrackerState``, ``MapState``, and the outputs
 ``DetectionResult``, ``Objects``, ``TrackerOutputs``); leaves keep their
 dtype and shape. ``state_to_numpy`` takes any of them, so tests compare
-outputs field by field.
+outputs field by field. A vmapped JAX state (every leaf with a leading
+batch axis) crosses the same way into the port's stacked state
+(``parallel.sharding.batched_init_state``, ``replay_batch``'s final
+states) and back.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ import numpy as np
 import torch
 
 from dynamic_direct_lidar_odometry_tpu_torch import pipeline
+from dynamic_direct_lidar_odometry_tpu_torch.core.tree import is_namedtuple
 from dynamic_direct_lidar_odometry_tpu_torch.detection import detection
 from dynamic_direct_lidar_odometry_tpu_torch.mapping import mapper
 from dynamic_direct_lidar_odometry_tpu_torch.odometry import keyframes, odometry
@@ -45,14 +49,10 @@ _CLASSES = {
 }
 
 
-def _is_namedtuple(x) -> bool:
-    return isinstance(x, tuple) and hasattr(x, "_fields")
-
-
 def state_from_numpy(tree: Any, device) -> Any:
     """A JAX state container with numpy leaves -> the port's container
     with tensors on ``device``."""
-    if _is_namedtuple(tree):
+    if is_namedtuple(tree):
         name = type(tree).__name__
         if name not in _CLASSES:
             raise TypeError(f"no port container for {name}")
@@ -66,6 +66,6 @@ def state_from_numpy(tree: Any, device) -> Any:
 def state_to_numpy(state: Any) -> Any:
     """The port's state or output container -> the same container with
     numpy leaves."""
-    if _is_namedtuple(state):
+    if is_namedtuple(state):
         return type(state)(*(state_to_numpy(v) for v in state))
     return state.detach().cpu().numpy()

@@ -168,7 +168,7 @@ def step(
     if axis_name is not None:
         raise NotImplementedError(
             "point-parallel odometry (axis_name/pt_size) is not ported yet: "
-            "ROADMAP.md queue 1 item 15"
+            "ROADMAP.md queue 1 item 1"
         )
     dev = state.T.device
     p = prep.preprocess(cfg, raw_points, raw_mask)

@@ -109,54 +109,218 @@ def _window_self_covariances(
     return cov.reshape(nb * B, 3, 3)[:N]
 
 
+# Every function below rounds as the JAX package's jitted
+# ``regularize_plane`` does on the CPU (XLA, x86-64 with FMA, glibc 2.36).
+# - XLA's CPU code generator contracts a multiply feeding an add or a
+#   subtract into one fused multiply-add, taking the product that is the
+#   first operand in its fusion's LLVM IR; each contraction is written out
+#   as ``_fma``. A product of two f32 is exact in f64, so the f64 product
+#   plus the f64 addend, rounded to f32, is the fused result (up to a double
+#   rounding that needs 29 more bits to tie).
+# - XLA runs with denormals flushed to zero, on input and on output:
+#   ``_ftz`` follows every f32 operation of the chain.
+# - Roots and quotients are taken in f64 and rounded once, which is
+#   correctly rounded in f32 (53 >= 2 * 24 + 2), as XLA's are; torch's f32
+#   CPU root was measured 0.74 ulp off on one host.
+# - XLA calls the C library for ``cos`` and ``atan2`` (its ``arccos`` is
+#   ``atan2(sqrt((1 - x)(1 + x)), x)``); ``_cosf`` and ``_atan2f`` copy
+#   glibc's algorithms.
+# Every step is its own eager op, so no fused kernel on the card contracts
+# or reorders anything, and the card gives the host's bits.
+
+_DENORM_MAX = 2.0**-126 - 2.0**-149  # the largest f32 denormal
+
+
+def _ftz(x: torch.Tensor) -> torch.Tensor:
+    """Flush f32 denormals to zero (one op)."""
+    return torch.nn.functional.hardshrink(x, _DENORM_MAX)
+
+
+def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """f32 ``a * b + c`` with one rounding, flushed (the f64 product is
+    exact, so an f64 multiply-add fused or not gives the same sum)."""
+    return _ftz(torch.addcmul(c.double(), a.double(), b.double()).float())
+
+
+def _mul(a: torch.Tensor, b) -> torch.Tensor:
+    return _ftz(a * b)
+
+
+def _sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    return torch.sqrt(x.double()).float()
+
+
+def _div_rn(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return _ftz((a.double() / b.double()).float())
+
+
+# glibc's sincosf tables (sysdeps/ieee754/flt-32/sincosf_data.c)
+_HPI_INV = float.fromhex("0x1.45F306DC9C883p+23")  # 2/pi * 2^24
+_HPI = float.fromhex("0x1.921FB54442D18p0")
+_COS_C = [float.fromhex(h) for h in (
+    "0x1p0", "-0x1.ffffffd0c621cp-2", "0x1.55553e1068f19p-5",
+    "-0x1.6c087e89a359dp-10", "0x1.99343027bf8c3p-16")]
+_SIN_S = [float.fromhex(h) for h in (
+    "-0x1.555545995a603p-3", "0x1.1107605230bc4p-7", "-0x1.994eb3774cf24p-13")]
+
+
+def _cosf(y: torch.Tensor) -> torch.Tensor:
+    """glibc's ``cosf`` for pi/4 <= |y| < 120 (the range reduction and the
+    two polynomials are evaluated in f64, then rounded once)."""
+    x = y.double()
+    n = ((x * _HPI_INV).to(torch.int32) + 0x800000) >> 24
+    x = x - n.double() * _HPI
+    use_cos = (n & 1) == 0  # cos in an odd quadrant is the sine polynomial
+    s = torch.where(((n + 1) & 2) == 0, 1.0, -1.0).double()  # sign[n & 3]
+    flip = torch.where((n & 2) != 0, -1.0, 1.0).double()
+    x2 = x * x
+    xs = x * s
+    x3 = xs * x2
+    sin_r = (xs + x3 * _SIN_S[0]) + (x3 * x2) * (_SIN_S[1] + x2 * _SIN_S[2])
+    c0, c1, c2, c3, c4 = (flip * c for c in _COS_C)
+    x4 = x2 * x2
+    cos_r = ((c0 + x2 * c1) + x4 * c2) + (x4 * x2) * (c3 + x2 * c4)
+    return torch.where(use_cos, cos_r, sin_r).float()
+
+
+# glibc's fdlibm ``atanf`` (sysdeps/ieee754/flt-32/s_atanf.c), in f32
+_ATANHI = (4.6364760399e-01, 7.8539812565e-01, 9.8279368877e-01, 1.5707962513e+00)
+_ATANLO = (5.0121582440e-09, 3.7748947079e-08, 3.4473217170e-08, 7.5497894159e-08)
+_AT = (3.3333334327e-01, -2.0000000298e-01, 1.4285714924e-01, -1.1111110449e-01,
+       9.0908870101e-02, -7.6918758452e-02, 6.6610731184e-02, -5.8335702866e-02,
+       4.9768779427e-02, -3.6531571299e-02, 1.6285819933e-02)
+
+
+_PI, _PI_LO, _PI_O_2 = 3.1415927410e+00, -8.7422776573e-08, 1.5707963705e+00
+# every f32 constant of the chain, uploaded once per call; 0-d views of it
+# keep each operation f32 with f32 operands (a Python number would not:
+# ``c / x`` on a tensor is ``reciprocal(x) * c``)
+_CONSTS = (1.0, 2.0, 1.5, 0.5, 1.0 / 3.0, 1.0 / 6.0, 2.0 * math.pi / 3.0, 1.0 - 1e-3,
+           _PI, _PI_LO, _PI_O_2) + _AT + _ATANHI + _ATANLO
+
+
+class _K:
+    """0-d f32 views of :data:`_CONSTS` on one device."""
+
+    def __init__(self, device):
+        self.t = torch.tensor(_CONSTS, dtype=torch.float32, device=device)
+        (self.one, self.two, self.one_half, self.half, self.third, self.sixth,
+         self.two_pi_3, self.plane, self.pi, self.pi_lo, self.pi_o_2) = self.t[:11]
+        self.at = self.t[11:22]
+        self.hi, self.lo = self.t[22:26], self.t[26:30]
+
+
+def _atanf(x: torch.Tensor, k: _K) -> torch.Tensor:
+    """glibc's ``atanf`` for x >= 0, every operation rounded to f32."""
+    one = k.one
+    bits = x.view(torch.int32)
+    idx = ((bits >= 0x3EE00000).int() + (bits >= 0x3F300000).int()
+           + (bits >= 0x3F980000).int() + (bits >= 0x401C0000).int()) - 1
+    red = torch.where(idx == 0, (k.two * x - one) / (k.two + x), x)
+    red = torch.where(idx == 1, (x - one) / (x + one), red)
+    red = torch.where(idx == 2, (x - k.one_half) / (one + k.one_half * x), red)
+    red = torch.where(idx == 3, -one / x, red)
+    at = k.at
+    z = red * red
+    w = z * z
+    s1 = z * (at[0] + w * (at[2] + w * (at[4] + w * (at[6] + w * (at[8] + w * at[10])))))
+    s2 = w * (at[1] + w * (at[3] + w * (at[5] + w * (at[7] + w * at[9]))))
+    tail = red * (s1 + s2)
+    hi, lo = k.hi, k.lo
+    i = idx.clamp_min(0).long()
+    out = torch.where(idx < 0, red - tail, hi[i] - ((tail - lo[i]) - red))
+    return torch.where(bits >= 0x4C000000, hi[3] + lo[3], out)
+
+
+def _atan2f(y: torch.Tensor, x: torch.Tensor, k: _K | None = None) -> torch.Tensor:
+    """glibc's ``atan2f`` (sysdeps/ieee754/flt-32/e_atan2f.c) for y >= 0."""
+    k = k if k is not None else _K(x.device)
+    pi, pi_lo, pi_o_2 = k.pi, k.pi_lo, k.pi_o_2
+    ix = x.view(torch.int32) & 0x7FFFFFFF
+    iy = y.view(torch.int32) & 0x7FFFFFFF
+    e = (iy - ix) >> 23
+    neg = torch.signbit(x)
+    z = _atanf(torch.abs(y / x), k)
+    z = torch.where(e > 60, pi_o_2 + k.half * pi_lo, z)
+    z = torch.where(neg & (e < -60), 0.0, z)
+    out = torch.where(neg, pi - (z - pi_lo), z)
+    out = torch.where(x == 1.0, _atanf(y, k), out)
+    out = torch.where(iy == 0, torch.where(neg, pi, y), out)
+    out = torch.where(ix == 0, pi_o_2, out)
+    return torch.where(torch.isnan(x) | torch.isnan(y), x + y, out)
+
+
+def _sumsq(v: torch.Tensor) -> torch.Tensor:
+    """XLA's ``sum(v * v, -1)`` over 3 lanes: a chain of multiply-adds."""
+    return _fma(v[..., 2], v[..., 2], _fma(v[..., 1], v[..., 1], _mul(v[..., 0], v[..., 0])))
+
+
+def _cross(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """``jnp.cross(u, v)`` with each lane's first product contracted."""
+    i, j = [1, 2, 0], [2, 0, 1]
+    return _fma(u[..., i], v[..., j], -_mul(u[..., j], v[..., i]))
+
+
 def smallest_eigvec_sym3(A: torch.Tensor) -> torch.Tensor:
     """Unit eigenvector of the smallest eigenvalue of symmetric (..., 3, 3)
     by the closed form (Cardano eigenvalue + largest cross product of the
     rows of ``A - lmin I``); near-isotropic matrices fall back to e_z.
-    Divisions by a constant are products with its f32 reciprocal, as XLA
-    rewrites them in the JAX package."""
+    Rounded as XLA's CPU fusions round it (see ``_fma``): a division by a
+    constant is a product with its f32 reciprocal, and each of the three
+    cross products recomputes ``lmin`` in a fusion of its own, ``c01``'s
+    with the other product of its sum contracted. Independent chains run
+    stacked, one operation for all of them."""
+    return _smallest_eigvec(A, _K(A.device))
+
+
+def _smallest_eigvec(A: torch.Tensor, k: _K) -> torch.Tensor:
+    A = _ftz(A)
     a00, a01, a02 = A[..., 0, 0], A[..., 0, 1], A[..., 0, 2]
     a11, a12, a22 = A[..., 1, 1], A[..., 1, 2], A[..., 2, 2]
-    q = (a00 + a11 + a22) * (1.0 / 3.0)
-    b00, b11, b22 = a00 - q, a11 - q, a22 - q
-    p2 = (
-        b00 * b00 + b11 * b11 + b22 * b22
-        + 2.0 * (a01 * a01 + a02 * a02 + a12 * a12)
-    ) * (1.0 / 6.0)
-    p = torch.sqrt(torch.clamp_min(p2, 1e-30))
-    detB = (
-        b00 * (b11 * b22 - a12 * a12)
-        - a01 * (a01 * b22 - a12 * a02)
-        + a02 * (a01 * a12 - b11 * a02)
-    )
-    r = torch.clamp(detB / (2.0 * p * p * p), -1.0, 1.0)
-    phi = torch.arccos(r) * (1.0 / 3.0)
-    lmin = q + 2.0 * p * torch.cos(phi + 2.0 * math.pi / 3.0)
+    s = _ftz(_ftz(a00 + a11) + a22)
+    q = _mul(s, k.third)
+    b00, b11, b22 = _ftz(torch.stack([a00, a11, a22], -1) - q[..., None]).unbind(-1)
+    # sum of the squared diagonal, and of the squared off-diagonal
+    sq = _sumsq(torch.stack([torch.stack([b11, b00, b22], -1), torch.stack([a02, a01, a12], -1)], -2))
+    p = _sqrt_rn(torch.clamp_min(_mul(_ftz(sq[..., 0] + sq[..., 1] * k.two), k.sixth), 1e-30))
+    # det(A - q I): the three 2x2 minors, then their sum
+    m = _fma(torch.stack([b11, a01, a12], -1), torch.stack([b22, b22, a01], -1),
+             -_mul(torch.stack([a12, a12, b11], -1), torch.stack([a12, a02, a02], -1)))
+    detB = _fma(a02, m[..., 2], _fma(b00, m[..., 0], -_mul(a01, m[..., 1])))
+    r = torch.clamp(_div_rn(detB, _mul(_mul(p * k.two, p), p)), -1.0, 1.0)
+    acos = _atan2f(_sqrt_rn(_mul(k.one - r, r + k.one)), r, k)
+    cs = _cosf(_fma(acos, k.third, k.two_pi_3))
+    p2 = p * k.two
 
-    c00, c11, c22 = a00 - lmin, a11 - lmin, a22 - lmin
-    r0 = torch.stack([c00, a01, a02], dim=-1)
-    r1 = torch.stack([a01, c11, a12], dim=-1)
-    r2 = torch.stack([a02, a12, c22], dim=-1)
-    c01 = torch.linalg.cross(r0, r1, dim=-1)
-    c02 = torch.linalg.cross(r0, r2, dim=-1)
-    c12 = torch.linalg.cross(r1, r2, dim=-1)
-    n01 = torch.sum(c01 * c01, dim=-1)
-    n02 = torch.sum(c02 * c02, dim=-1)
-    n12 = torch.sum(c12 * c12, dim=-1)
+    # lmin of c01's fusion (q's product contracted), and of c02's and c12's
+    lmin = _fma(torch.stack([s, cs], -1), torch.stack([k.third.expand_as(s), p2], -1),
+                torch.stack([_mul(cs, p2), q], -1))
+    c00, c11, c22 = _ftz(torch.stack([a00, a11, a22], -1)[..., None, :] - lmin[..., :, None]).unbind(-1)
+    r0 = torch.stack([c00, a01.unsqueeze(-1).expand_as(c00), a02.unsqueeze(-1).expand_as(c00)], -1)
+    r1 = torch.stack([a01.unsqueeze(-1).expand_as(c11), c11, a12.unsqueeze(-1).expand_as(c11)], -1)
+    r2 = torch.stack([a02, a12, c22[..., 1]], -1)
+    # c01 = r0 x r1 at the first lmin; c02 = r0 x r2, c12 = r1 x r2 at the second
+    c = _cross(torch.stack([r0[..., 0, :], r0[..., 1, :], r1[..., 1, :]], -2),
+               torch.stack([r1[..., 0, :], r2, r2], -2))
+    n = _sumsq(c)
+    n01, n02, n12 = n.unbind(-1)
+    c01, c02, c12 = c.unbind(-2)
     best = torch.where(
         ((n01 >= n02) & (n01 >= n12))[..., None],
         c01,
         torch.where((n02 >= n12)[..., None], c02, c12),
     )
-    nrm = torch.linalg.vector_norm(best, dim=-1, keepdim=True)
+    nrm = _sqrt_rn(_sumsq(best))[..., None]
     ez = torch.zeros_like(best)
     ez[..., 2] = 1.0
-    return torch.where(nrm > 1e-12, best / torch.clamp_min(nrm, 1e-30), ez)
+    return torch.where(nrm > 1e-12, _div_rn(best, torch.clamp_min(nrm, 1e-30)), ez)
 
 
 def regularize_plane(cov: torch.Tensor) -> torch.Tensor:
     """Spectrum-replace each covariance with (1, 1, 1e-3):
-    ``I - (1 - 1e-3) n n^T`` with n the surface normal."""
-    n = smallest_eigvec_sym3(cov)
+    ``I - (1 - 1e-3) n n^T`` with n the surface normal (the subtraction
+    contracted, as XLA does)."""
+    k = _K(cov.device)
+    n = _smallest_eigvec(cov, k)
     eye = torch.eye(3, dtype=cov.dtype, device=cov.device)
-    return eye - (1.0 - 1e-3) * n[..., :, None] * n[..., None, :]
+    return _fma(-_mul(n[..., :, None], k.plane), n[..., None, :], eye)

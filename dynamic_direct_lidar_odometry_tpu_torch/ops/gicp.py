@@ -85,22 +85,23 @@ def inv3x3(m: torch.Tensor) -> torch.Tensor:
 def solve6_ldlt(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Solve the symmetric 6x6 normal equations by the JAX package's
     unrolled LDLT (the reference's Eigen::LDLT), operation for operation,
-    so the LM accept/reject decisions match."""
+    so the LM accept/reject decisions match. ``A`` (..., 6, 6), ``b``
+    (..., 6): leading dims are independent systems."""
     L = [[None] * 6 for _ in range(6)]
     D = [None] * 6
     for j in range(6):
-        d = A[j, j]
+        d = A[..., j, j]
         for k in range(j):
             d = d - L[j][k] * L[j][k] * D[k]
         D[j] = torch.where(torch.abs(d) < 1e-30, 1e-30, d)
         for i in range(j + 1, 6):
-            v = A[i, j]
+            v = A[..., i, j]
             for k in range(j):
                 v = v - L[i][k] * L[j][k] * D[k]
             L[i][j] = v / D[j]
     y = [None] * 6
     for i in range(6):
-        v = b[i]
+        v = b[..., i]
         for k in range(i):
             v = v - L[i][k] * y[k]
         y[i] = v
@@ -110,7 +111,7 @@ def solve6_ldlt(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         for k in range(i + 1, 6):
             v = v - L[k][i] * x[k]
         x[i] = v
-    return torch.stack(x)
+    return torch.stack(x, dim=-1)
 
 
 def _linearize(
@@ -129,68 +130,94 @@ def _linearize(
 ):
     """One GICP linearization at pose T: correspondences, Mahalanobis
     weights, error y0 = sum e^T M e and the normal equations H, b with
-    J = [skew(T a) | -I]. Returns (y0, H, b, (idx, valid, M, B, sqd))."""
-    R = T[:3, :3]
+    J = [skew(T a) | -I]. Returns (y0, H, b, (idx, valid, M, B, sqd)).
+
+    With a leading batch axis (T (B, 4, 4), clouds (B, N, 3), ...) every
+    stream is linearized at once; ``sparse_prep`` is then a
+    :class:`nn_cuda.BatchedSparseTarget` and the correspondences of all
+    streams are one launch of the batched sparse kernel."""
+    batched = src_pts.dim() == 3
+    R = T[..., :3, :3]
     src_t = se3.transform_points(T, src_pts)
-    src_t_q = torch.where(src_mask[:, None], src_t, SENTINEL)
+    src_t_q = torch.where(src_mask[..., None], src_t, SENTINEL)
+    r = max_corr_dist * prune_dilation
 
     on_acc = device.on_accelerator(src_pts)
-    if nn_impl == "sparse" and on_acc:
+    if nn_impl == "sparse" and on_acc and batched:
+        if sparse_prep is None:
+            sparse_prep = nn_cuda.prepare_sparse_targets(tgt_pts)
+        idx, sqd = nn_cuda.nn1_sparse_batched_prepared(src_t_q, sparse_prep, radius=r)
+    elif nn_impl == "sparse" and on_acc:
         if sparse_prep is None:
             sparse_prep = nn_cuda.prepare_sparse_target(tgt_pts)
-        idx, sqd = nn_cuda.nn1_sparse_prepared(
-            src_t_q, sparse_prep, radius=max_corr_dist * prune_dilation
-        )
-    elif nn_impl == "exact":
-        idx, sqd = knn_ops.nn1(src_t_q, tgt_pts)
-    else:  # "auto", "pallas", or "sparse" off the accelerator
-        idx, sqd = knn_ops.nn1_best(src_t_q, tgt_pts)
+        idx, sqd = nn_cuda.nn1_sparse_prepared(src_t_q, sparse_prep, radius=r)
+    else:
+        # "exact"; "auto", "pallas", or "sparse" off the accelerator
+        nn = knn_ops.nn1 if nn_impl == "exact" else knn_ops.nn1_best
+        if batched:
+            idx, sqd = (torch.stack(v) for v in zip(*map(nn, src_t_q, tgt_pts)))
+        else:
+            idx, sqd = nn(src_t_q, tgt_pts)
     # invalid targets sit at the SENTINEL: the gate below discards them
     valid = src_mask & (sqd < max_corr_dist * max_corr_dist)
     vf = valid.to(src_pts.dtype)
     if tgt_feat is None:
-        tgt_feat = torch.cat(
-            [tgt_pts, tgt_covs.reshape(tgt_pts.shape[0], 9)], dim=1
-        )
+        tgt_feat = torch.cat([tgt_pts, tgt_covs.flatten(-2)], dim=-1)
     # the exact sweeps may return a padded target row for a sentinel
     # query (distance 0 to the 1e6 padding); clamp like a JAX gather
-    feat = tgt_feat[idx.long().clamp_max(tgt_feat.shape[0] - 1)]
-    B = feat[:, :3]
-    cov_B = feat[:, 3:].reshape(-1, 3, 3)
-    RCAR = torch.matmul(torch.matmul(R, src_covs), R.T)
-    M = inv3x3(cov_B + RCAR)  # (N, 3, 3)
+    sel = idx.long().clamp_max(tgt_feat.shape[-2] - 1)
+    if batched:
+        feat = torch.gather(tgt_feat, 1, sel[..., None].expand(-1, -1, tgt_feat.shape[-1]))
+    else:
+        feat = tgt_feat[sel]
+    B = feat[..., :3]
+    cov_B = feat[..., 3:].unflatten(-1, (3, 3))
+    Rn = R[:, None] if batched else R
+    RCAR = torch.matmul(torch.matmul(Rn, src_covs), Rn.transpose(-1, -2))
+    M = inv3x3(cov_B + RCAR)  # (..., N, 3, 3)
 
-    e = (B - src_t) * vf[:, None]
-    Me = torch.matmul(M, e[:, :, None])[:, :, 0]
-    y0 = torch.sum(e * Me)
-
+    e = (B - src_t) * vf[..., None]
+    Me = torch.matmul(M, e[..., None])[..., 0]
     S = se3.skew(src_t)
     eye = torch.eye(3, dtype=S.dtype, device=S.device).expand_as(S)
-    J = torch.cat([S, -eye], dim=-1) * vf[:, None, None]  # (N, 3, 6)
+    J = torch.cat([S, -eye], dim=-1) * vf[..., None, None]  # (..., N, 3, 6)
     MJ = torch.matmul(M, J)
-    N = src_pts.shape[0]
-    J2 = J.reshape(N * 3, 6)
-    H = torch.matmul(J2.T, MJ.reshape(N * 3, 6))
-    b = torch.matmul(J2.T, Me.reshape(N * 3))
+    N = src_pts.shape[-2]
+    J2t = J.reshape(*J.shape[:-3], N * 3, 6).transpose(-1, -2)
+    MJ2 = MJ.reshape(*J.shape[:-3], N * 3, 6)
+    Me2 = Me.reshape(*J.shape[:-3], N * 3)
+    if batched:
+        # the reductions stream by stream, each the single-stream call on
+        # the same shapes, so a stream's sums round as its align's do
+        y0 = torch.stack([torch.sum(x) for x in e * Me])
+        H = torch.stack([torch.matmul(j, m) for j, m in zip(J2t, MJ2)])
+        b = torch.stack([torch.matmul(j, v) for j, v in zip(J2t, Me2)])
+    else:
+        y0 = torch.sum(e * Me)
+        H = torch.matmul(J2t, MJ2)
+        b = torch.matmul(J2t, Me2)
     return y0, H, b, (idx, valid, M, B, sqd)
 
 
 def _compute_error(T, src_pts, aux):
     """sum e^T M e at a candidate pose, correspondences and weights held
-    from the last linearization."""
+    from the last linearization (per stream over a leading batch axis)."""
     _, valid, M, B, _ = aux
     src_t = se3.transform_points(T, src_pts)
-    e = (B - src_t) * valid[:, None].to(src_pts.dtype)
-    Me = torch.matmul(M, e[:, :, None])[:, :, 0]
+    e = (B - src_t) * valid[..., None].to(src_pts.dtype)
+    Me = torch.matmul(M, e[..., None])[..., 0]
+    if src_pts.dim() == 3:
+        return torch.stack([torch.sum(x) for x in e * Me])
     return torch.sum(e * Me)
 
 
 def _is_converged(delta: torch.Tensor, s: GICPSettings) -> torch.Tensor:
-    """Reference convergence test (lsq_registration_impl.hpp:129-139)."""
+    """Reference convergence test (lsq_registration_impl.hpp:129-139), per
+    pose of (..., 4, 4)."""
     eye = torch.eye(3, dtype=delta.dtype, device=delta.device)
-    Rd = torch.abs(delta[:3, :3] - eye) / s.rotation_epsilon
-    td = torch.abs(delta[:3, 3]) / s.transformation_epsilon
-    return torch.maximum(torch.max(Rd), torch.max(td)) < 1.0
+    Rd = torch.abs(delta[..., :3, :3] - eye) / s.rotation_epsilon
+    td = torch.abs(delta[..., :3, 3]) / s.transformation_epsilon
+    return torch.maximum(torch.amax(Rd, dim=(-2, -1)), torch.amax(td, dim=-1)) < 1.0
 
 
 def align(
@@ -211,7 +238,7 @@ def align(
     if axis_name is not None:
         raise NotImplementedError(
             "point-sharded align (axis_name) is not ported yet: ROADMAP.md "
-            "queue 1 item 15"
+            "queue 1 item 1"
         )
     s = settings
     dev = src_pts.device
@@ -340,6 +367,163 @@ def align(
         T=x0,
         converged=torch.tensor(converged, device=dev) & (num_inliers > 0),
         iterations=torch.tensor(it, dtype=torch.int32, device=dev),
+        final_error=y_fin,
+        final_hessian=H_fin,
+        num_inliers=num_inliers,
+        residuals=residuals,
+        correspondences=corr,
+        pose_trace=pose_trace,
+    )
+
+
+def align_batch(
+    src_pts: torch.Tensor,
+    src_mask: torch.Tensor,
+    src_covs: torch.Tensor,
+    tgt_pts: torch.Tensor,
+    tgt_mask: torch.Tensor,
+    tgt_covs: torch.Tensor,
+    guess: torch.Tensor,
+    settings: GICPSettings = GICPSettings(),
+) -> GICPResult:
+    """B independent :func:`align` calls over a leading batch axis (the
+    JAX package's ``jax.vmap(gicp.align)``): ``src_pts`` (B, N, 3) ...
+    ``guess`` (B, 4, 4); every field of the result has a leading B.
+
+    A vmapped ``while_loop`` runs its body for every stream while any
+    stream's predicate holds and keeps each finished stream's carry: so
+    here do the outer LM loop and the inner lambda loop, with a per-stream
+    ``active`` mask and ``torch.where`` on the carry. Each loop reads the
+    host once per iteration for the whole batch (is any stream still
+    running), and a stream's pose, iteration count and inliers are what
+    :func:`align` gives it. Every linearization is one batched pass; with
+    ``nn_impl="sparse"`` on the card its correspondences are one launch of
+    the batched sparse 1-NN kernel for all streams."""
+    s = settings
+    Bn, dev, f32 = src_pts.shape[0], src_pts.device, torch.float32
+    tgt_q = torch.where(tgt_mask[..., None], tgt_pts, SENTINEL)
+    sparse_prep = None
+    if device.on_accelerator(tgt_pts) and s.nn_impl == "sparse":
+        sparse_prep = nn_cuda.prepare_sparse_targets(tgt_q)
+    tgt_feat = torch.cat([tgt_q, tgt_covs.flatten(-2)], dim=-1)
+
+    def lin(T, nn_impl=s.nn_impl, prune_dilation=1.0):
+        return _linearize(
+            T, src_pts, src_mask, src_covs, tgt_q, tgt_mask, tgt_covs,
+            s.max_correspondence_distance, nn_impl, prune_dilation,
+            sparse_prep=sparse_prep, tgt_feat=tgt_feat,
+        )
+
+    def sel(m, a, b):
+        return torch.where(m.reshape(m.shape + (1,) * (a.dim() - m.dim())), a, b)
+
+    eye6 = torch.eye(6, dtype=f32, device=dev)
+    eye4 = torch.eye(4, dtype=f32, device=dev).expand(Bn, 4, 4)
+    false = torch.zeros(Bn, dtype=torch.bool, device=dev)
+
+    def lm_inner(run, x0, lam, y0, H, b, aux):
+        """step_lm for the streams in ``run``, frozen per stream as in
+        :func:`align`'s inner loop."""
+        nu = torch.full((Bn,), 2.0, dtype=f32, device=dev)
+        x, delta_done = x0, eye4
+        done, accepted, conv = false, false, false
+        j = 0
+        act = run
+        while j < s.lm_max_iterations and bool(act.any()):  # host sync
+            d = solve6_ldlt(H + lam[:, None, None] * eye6, -b)
+            delta = se3.se3_exp(d)
+            xi = se3.compose(delta, x)
+            yi = _compute_error(xi, src_pts, aux)
+            g = lam[:, None] * d - b
+            denom = torch.clamp_min(torch.stack([torch.dot(x, y) for x, y in zip(d, g)]), 1e-30)
+            rho = (y0 - yi) / denom
+            reject = rho < 0
+            acc = act & ~reject
+            crj = act & reject & _is_converged(delta, s)
+            grow = act & reject & ~crj
+            t = 2.0 * rho - 1.0
+            lam = torch.where(acc, lam * torch.clamp_min(1.0 - t * t * t, 1.0 / 3.0),
+                              torch.where(grow, nu * lam, lam))
+            nu = torch.where(grow, 2.0 * nu, nu)
+            x = sel(acc, xi, x)
+            delta_done = sel(acc | crj, delta, delta_done)
+            done, accepted, conv = done | acc | crj, accepted | acc, conv | crj
+            act = act & ~(acc | crj)
+            j += 1
+        return x, lam, done, accepted, conv, delta_done
+
+    x0 = guess.to(f32)
+    lm_lambda = torch.full((Bn,), -1.0, dtype=f32, device=dev)
+    y_st = torch.zeros((Bn,), dtype=f32, device=dev)
+    H_st = eye6.expand(Bn, 6, 6)
+    converged, failed = false, false
+    it = torch.zeros((Bn,), dtype=torch.int32, device=dev)
+    trace = []
+    k = 0
+    while k < s.max_iterations:
+        run = ~converged & ~failed
+        if not bool(run.any()):  # host sync
+            break
+        y0, H, b, aux = lin(x0)
+        hmax = torch.amax(torch.abs(torch.diagonal(H, dim1=-2, dim2=-1)), dim=-1)
+        lam = torch.where(lm_lambda < 0, s.lm_init_lambda_factor * hmax, lm_lambda)
+        degenerate = hmax < 1e-12
+        if s.optimizer == "gn":
+            d = solve6_ldlt(H + 1e-12 * eye6, -b)
+            d = sel(degenerate, torch.zeros_like(d), d)
+            delta = se3.se3_exp(d)
+            x_new = se3.compose(delta, x0)
+            conv_new = degenerate | _is_converged(delta, s)
+            failed_new = false
+            H_new = H
+        else:
+            x_new, lam, done, accepted, conv_rej, delta = lm_inner(
+                run & ~degenerate, x0, lam, y0, H, b, aux
+            )
+            x_new = sel(degenerate, x0, x_new)
+            conv_new = degenerate | conv_rej | (accepted & _is_converged(delta, s))
+            failed_new = ~degenerate & ~done
+            H_new = sel(accepted, H, H_st)
+        y_st = torch.where(run, y0, y_st)
+        H_st = sel(run, H_new, H_st)
+        lm_lambda = torch.where(run, lam, lm_lambda)
+        converged = converged | (run & conv_new)
+        failed = failed | (run & failed_new)
+        x0 = sel(run, x_new, x0)
+        it = it + run.to(torch.int32)
+        if s.record_trace:
+            trace.append(x0)
+        k += 1
+
+    if s.compute_residuals:
+        if s.nn_impl == "sparse":
+            y_fin, H_fin, _, aux = lin(x0, "sparse", prune_dilation=3.0)
+            res_cap = 3.0 * s.max_correspondence_distance
+        else:
+            y_fin, H_fin, _, aux = lin(x0)
+            res_cap = 1.0e3
+        idx, valid, _, _, sqd = aux
+        residuals = torch.clamp_max(torch.sqrt(torch.clamp_min(sqd, 0.0)), res_cap) * src_mask
+        corr = torch.where(valid, idx, -1).to(torch.int32)
+        num_inliers = valid.sum(dim=-1, dtype=torch.int32)
+    else:
+        y_fin, H_fin = y_st, H_st
+        residuals = torch.zeros(src_pts.shape[:2], dtype=f32, device=dev)
+        corr = torch.full(src_pts.shape[:2], -1, dtype=torch.int32, device=dev)
+        num_inliers = src_mask.sum(dim=-1, dtype=torch.int32)
+    if s.record_trace:
+        # a stream's k-th pose is the k-th pass's; rows past its count
+        # repeat its final pose, as align's do
+        rows = trace + [x0] * (s.max_iterations - len(trace))
+        pose_trace = torch.stack(
+            [sel(k < it, r, x0) for k, r in enumerate(rows)], dim=1
+        )
+    else:
+        pose_trace = torch.zeros((Bn, 0, 4, 4), dtype=f32, device=dev)
+    return GICPResult(
+        T=x0,
+        converged=converged & (num_inliers > 0),
+        iterations=it,
         final_error=y_fin,
         final_hessian=H_fin,
         num_inliers=num_inliers,

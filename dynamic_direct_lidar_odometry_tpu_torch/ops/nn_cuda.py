@@ -11,6 +11,8 @@ kernel (LAUNCHES)   TPU kernel it replaces      CUDA source / entry point
                                                 ``ddlo_nn1_sparse``
 ``nn1_dense``       ``_nn1_kernel``             ``csrc/nn1_sparse.cu``
                                                 ``ddlo_nn1_dense``
+``nn1_sparse_       ``_nn1_sparse_kernel``      ``csrc/nn1_sparse.cu``
+batched``           under ``jax.vmap``          ``ddlo_nn1_sparse_batched``
 ``knn_classes``     ``_nn_classes_kernel``      ``csrc/knn_classes.cu``
                                                 ``ddlo_knn_classes``
 ``knn_classes_      ``_nn_classes_sparse_       ``csrc/knn_classes.cu``
@@ -29,7 +31,9 @@ for CUDA tensors (and count the launch) or raise; they take the plain
 version only for tensors that lie on the CPU. The entry points mirror
 the JAX ones:
 :func:`nn1_sparse` / :func:`nn1_sparse_prepared`, :func:`nn1_dense`
-(``nn1_pallas``) and :func:`knn_approx` (``knn_approx_pallas``).
+(``nn1_pallas``) and :func:`knn_approx` (``knn_approx_pallas``); and
+for B streams at once, :func:`prepare_sparse_targets` /
+:func:`nn1_sparse_batched_prepared`.
 """
 
 from __future__ import annotations
@@ -145,6 +149,7 @@ def build() -> Dict[str, _cuda_build.Built]:
     for lib, fn, args in (
         ("nn1_sparse", "ddlo_nn1_sparse", [P] * 4 + [I] * 6 + [P] * 2),
         ("nn1_sparse", "ddlo_nn1_dense", [P] * 2 + [I] * 3 + [P] * 2),
+        ("nn1_sparse", "ddlo_nn1_sparse_batched", [P] * 4 + [I] * 8 + [P] * 2),
         ("nn1_sparse", "ddlo_nn1_rows_per_block", []),
         ("nn1_sparse", "ddlo_nn1_stage_rows", []),
         ("nn1_sparse", "ddlo_nn1_resident_blocks", []),
@@ -283,24 +288,28 @@ def nn1_sparse_chunks(
     return nn1_sparse_reference(q, tt, counts, lists, q_tile, t_chunk)
 
 
+def _tile_overlap(q, t_lo, t_hi, radius: float, q_tile: int) -> torch.Tensor:
+    """(..., n_tiles, n_chunks) bool: the padded query tiles' AABBs, from
+    real rows only (sentinel rows >= 5e5 excluded, so an all-sentinel
+    tile sweeps nothing), dilated by ``radius``, against every chunk AABB
+    on all axes. ``q`` (..., Qp, 3), ``t_lo``/``t_hi`` (..., n_chunks, 3)."""
+    qb = q.unflatten(-2, (-1, q_tile))
+    q_real = torch.all(qb < 5.0e5, dim=-1, keepdim=True)
+    q_lo = torch.where(q_real, qb, torch.inf).amin(dim=-2)
+    q_hi = torch.where(q_real, qb, -torch.inf).amax(dim=-2)
+    return torch.all(
+        (q_lo[..., :, None, :] - radius <= t_hi[..., None, :, :])
+        & (q_hi[..., :, None, :] + radius >= t_lo[..., None, :, :]),
+        dim=-1,
+    )
+
+
 def tile_chunk_lists(
     q: torch.Tensor, prep: SparseTarget, radius: float, q_tile: int
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """CSR active-chunk lists of the padded query tiles: tile AABBs built
-    from real rows only (sentinel rows >= 5e5 excluded, so an
-    all-sentinel tile sweeps nothing), dilated by ``radius``, tested for
-    overlap with every chunk AABB on all axes."""
-    n_tiles = q.shape[0] // q_tile
-    qb = q.reshape(n_tiles, q_tile, 3)
-    q_real = torch.all(qb < 5.0e5, dim=-1, keepdim=True)
-    q_lo = torch.where(q_real, qb, torch.inf).amin(dim=1)
-    q_hi = torch.where(q_real, qb, -torch.inf).amax(dim=1)
-    overlap = torch.all(
-        (q_lo[:, None, :] - radius <= prep.t_hi[None, :, :])
-        & (q_hi[:, None, :] + radius >= prep.t_lo[None, :, :]),
-        dim=-1,
-    )
-    return sparse_chunk_lists(overlap)
+    """CSR active-chunk lists of the padded query tiles (see
+    :func:`_tile_overlap`)."""
+    return sparse_chunk_lists(_tile_overlap(q, prep.t_lo, prep.t_hi, radius, q_tile))
 
 
 def nn1_sparse_prepared(
@@ -331,6 +340,126 @@ def nn1_sparse(
     return nn1_sparse_prepared(
         query, prepare_sparse_target(target, t_chunk), radius, q_tile
     )
+
+
+class BatchedSparseTarget(NamedTuple):
+    """:class:`SparseTarget` of B streams, the padded targets stacked along
+    the columns of ``tt``."""
+
+    tt: torch.Tensor  # (3, B * Tp) stream b in columns [b * Tp, (b + 1) * Tp)
+    t_lo: torch.Tensor  # (B, n_chunks, 3)
+    t_hi: torch.Tensor  # (B, n_chunks, 3)
+    n: int  # target rows of one stream (unpadded)
+
+
+def _pad_dim1(x: torch.Tensor, m: int, fill: float) -> torch.Tensor:
+    return pad_rows(x.transpose(0, 1), m, fill).transpose(0, 1)
+
+
+def prepare_sparse_targets(targets: torch.Tensor, t_chunk: int = 512) -> BatchedSparseTarget:
+    """:func:`prepare_sparse_target` of each of B targets (B, M, 3), stacked."""
+    t = _pad_dim1(targets, t_chunk, 1.0e6)
+    tb = t.unflatten(1, (-1, t_chunk))
+    return BatchedSparseTarget(
+        tt=t.reshape(-1, 3).T.contiguous(), t_lo=tb.amin(dim=2), t_hi=tb.amax(dim=2),
+        n=targets.shape[1],
+    )
+
+
+def nn1_sparse_batched_reference(
+    q: torch.Tensor,
+    tt: torch.Tensor,
+    counts: torch.Tensor,
+    lists: torch.Tensor,
+    q_tile: int,
+    t_chunk: int,
+    tiles_per_stream: int,
+    t_stream: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the batched entry, same contract: the
+    stacked problem swept as :func:`nn1_sparse_reference` sweeps one
+    (the lists hold stacked chunk ids), then each found index taken back
+    to its stream's own target rows (a query with nothing below 3e12
+    keeps (3e12, 0))."""
+    idx, dist = nn1_sparse_reference(q, tt, counts, lists, q_tile, t_chunk)
+    stream = torch.arange(q.shape[0], device=q.device) // (tiles_per_stream * q_tile)
+    return torch.where(dist < _BIG, idx - stream * t_stream, idx).to(torch.int32), dist
+
+
+def nn1_sparse_batched_chunks(
+    q: torch.Tensor,
+    tt: torch.Tensor,
+    counts: torch.Tensor,
+    lists: torch.Tensor,
+    q_tile: int,
+    t_chunk: int,
+    tiles_per_stream: int,
+    t_stream: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The batched entry's wrapper: B stacked sparse problems, ``q``
+    (B * tiles_per_stream * q_tile, 3), ``tt`` (3, B * t_stream), per
+    stacked tile ``counts`` and ``lists`` (ascending stacked chunk ids,
+    row stride one stream's chunk count). Returns (idx, sqd) per stacked
+    row, the index local to the row's stream. CUDA tensors launch
+    ``ddlo_nn1_sparse_batched`` once for the whole batch (a key fill and
+    the kernel; or raise); CPU tensors run
+    :func:`nn1_sparse_batched_reference`."""
+    if not q.is_cuda:
+        return nn1_sparse_batched_reference(
+            q, tt, counts, lists, q_tile, t_chunk, tiles_per_stream, t_stream
+        )
+    _check_inputs(q, tt, counts, lists)
+    lib = build()["nn1_sparse"].lib
+    rows, stage = lib.ddlo_nn1_rows_per_block(), lib.ddlo_nn1_stage_rows()
+    Qp, Tp = q.shape[0], tt.shape[1]
+    n_tiles, n_chunks = lists.shape
+    if (
+        q_tile % rows or t_chunk % stage or Qp != n_tiles * q_tile
+        or counts.shape[0] != n_tiles or n_tiles % tiles_per_stream
+        or t_stream != n_chunks * t_chunk
+        or Tp != (n_tiles // tiles_per_stream) * t_stream
+    ):
+        raise ValueError(
+            f"nn1_sparse_batched: inconsistent shapes q={tuple(q.shape)} "
+            f"tt={tuple(tt.shape)} counts={tuple(counts.shape)} "
+            f"lists={tuple(lists.shape)} q_tile={q_tile} t_chunk={t_chunk} "
+            f"tiles_per_stream={tiles_per_stream} t_stream={t_stream}"
+        )
+    if Tp >= 2**31:  # the key's index half, and the kernel's int columns
+        raise ValueError(f"nn1_sparse_batched: {Tp} stacked target rows exceed 2^31 - 1")
+    # units: one stream's full list (a tile never sweeps another stream's)
+    return _nn1_launch(lib, lib.ddlo_nn1_sparse_batched, "nn1_sparse_batched", q, tt,
+                       n_chunks * (t_chunk // stage),
+                       (q, tt, counts, lists, Qp, Tp, n_chunks, q_tile, t_chunk,
+                        tiles_per_stream, t_stream))
+
+
+def nn1_sparse_batched_prepared(
+    query: torch.Tensor,
+    prep: BatchedSparseTarget,
+    radius: float,
+    q_tile: int = 1024,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`nn1_sparse_prepared` of B streams in one kernel launch:
+    ``query`` (B, Q, 3) against :func:`prepare_sparse_targets`. Each
+    stream's rows equal its own :func:`nn1_sparse_prepared` call, bit for
+    bit. Returns (idx (B, Q) int32, sqd (B, Q) f32)."""
+    Bn, Q = query.shape[:2]
+    n_chunks = prep.t_lo.shape[1]
+    t_stream = prep.tt.shape[1] // Bn
+    t_chunk = t_stream // n_chunks
+    q = _pad_dim1(query, q_tile, 1.0e6)
+    n_tiles = q.shape[1] // q_tile
+    counts, lst = sparse_chunk_lists(
+        _tile_overlap(q, prep.t_lo, prep.t_hi, radius, q_tile).flatten(0, 1)
+    )
+    first = torch.arange(Bn, dtype=torch.int32, device=q.device) * n_chunks
+    lst = lst + first.repeat_interleave(n_tiles)[:, None]
+    idx, sqd = nn1_sparse_batched_chunks(
+        q.reshape(-1, 3).contiguous(), prep.tt, counts, lst, q_tile, t_chunk, n_tiles, t_stream
+    )
+    return (torch.clamp_max(idx.view(Bn, -1)[:, :Q], prep.n - 1),
+            sqd.view(Bn, -1)[:, :Q])
 
 
 def nn1_dense_reference(

@@ -150,6 +150,97 @@ def _top_k_stable(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return vals[:k], pos[:k]
 
 
+class SegmentStats(NamedTuple):
+    """Per-root statistics + feasibility (flat arrays indexed by root id)."""
+
+    size: torch.Tensor  # (H*W,)
+    line_count: torch.Tensor
+    min_z: torch.Tensor
+    max_z: torch.Tensor
+    max_dist: torch.Tensor
+    avg_residuum: torch.Tensor
+    feasible: torch.Tensor  # (H*W,) bool
+
+
+def segment_stats(
+    labels: torch.Tensor,  # (H, W) from label_components
+    ranges: torch.Tensor,
+    points: torch.Tensor,  # (H, W, 3) world frame
+    residual_img: torch.Tensor,  # (H, W)
+    sensor_height: torch.Tensor,  # () T[2, 3]
+    min_line_num: int,
+    valid_point_num: int,
+    valid_line_num: int,
+    max_distance: float,
+    min_delta_z: float,
+    max_delta_z: float,
+    max_elevation: float,
+) -> SegmentStats:
+    """The exact per-root feasibility gates of labelComponents
+    (detection.cpp:659-699) over every root: the oracle of
+    :func:`segment_objects`, which computes them for candidate roots only.
+    Reductions run over all member pixels (the reference tracks them over
+    BFS edges); the size gate is the reference's hardcoded 50."""
+    H, W = labels.shape
+    n = H * W
+    dev = labels.device
+    lab = labels.reshape(-1)
+    member = lab >= 0
+    seg = torch.where(member, lab, n).long()
+
+    rows_of = torch.arange(H, device=dev).repeat_interleave(W)
+    present = torch.zeros(((n + 1) * H,), dtype=torch.bool, device=dev)
+    present[seg * H + rows_of] = True
+    line_count = present.reshape(n + 1, H).sum(dim=1).to(torch.float32)[:n]
+
+    z = points[..., 2].reshape(-1)
+    r = ranges.reshape(-1)
+    res = residual_img.reshape(-1)
+    res_pos = member & (res > 0)
+    sum_data = torch.stack(
+        [member.to(torch.float32), torch.where(res_pos, res, 0.0), res_pos.to(torch.float32)], dim=-1
+    )
+    sums = torch.zeros((n + 1, 3), dtype=torch.float32, device=dev).index_add_(0, seg, sum_data)[:n]
+    size, res_sum, res_cnt = sums[:, 0], sums[:, 1], sums[:, 2]
+    big = 1e9
+    min_data = torch.where(member[:, None], torch.stack([z, -z, -r], dim=-1), big)
+    # an empty segment's minimum is +inf, as jax.ops.segment_min leaves it
+    mins = torch.full((n + 1, 3), torch.inf, dtype=torch.float32, device=dev).scatter_reduce_(
+        0, seg[:, None].expand(-1, 3), min_data, "amin"
+    )[:n]
+    min_z, max_z, max_dist = mins[:, 0], -mins[:, 1], -mins[:, 2]
+    avg_res = torch.where(res_cnt > 0, res_sum / torch.clamp_min(res_cnt, 1.0), 0.0)
+
+    feasible = (size >= 50) & (line_count >= min_line_num)
+    feasible = feasible | ((size >= valid_point_num) & (line_count >= valid_line_num))
+    feasible = feasible & (max_dist <= max_distance)
+    dz = max_z - min_z
+    feasible = feasible & (min_delta_z <= dz) & (dz <= max_delta_z)
+    feasible = feasible & ((min_z - sensor_height) <= max_elevation)
+    feasible = feasible & (size > 0)
+    return SegmentStats(size, line_count, min_z, max_z, max_dist, avg_res, feasible)
+
+
+def compact_segments(
+    labels: torch.Tensor, stats: SegmentStats, max_objects: int
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Pack the largest ``max_objects`` feasible roots into object slots:
+    slot_roots (S,) int32 (-1 = empty), slot_valid (S,), pixel_slot (H, W)
+    int32 (-1 = none)."""
+    H, W = labels.shape
+    n = H * W
+    top_sz, top_roots = _top_k_stable(torch.where(stats.feasible, stats.size, -1.0), max_objects)
+    slot_valid = top_sz > 0
+    slot_roots = torch.where(slot_valid, top_roots, -1).to(torch.int32)
+    root_to_slot = torch.full((n + 1,), -1, dtype=torch.int32, device=labels.device)
+    root_to_slot[torch.where(slot_valid, top_roots, n)] = torch.arange(
+        max_objects, dtype=torch.int32, device=labels.device
+    )
+    lab = labels.reshape(-1)
+    pixel_slot = torch.where(lab >= 0, root_to_slot[torch.where(lab >= 0, lab, 0).long()], -1)
+    return slot_roots, slot_valid, pixel_slot.reshape(H, W)
+
+
 def segment_objects(
     labels: torch.Tensor,  # (H, W) from label_components
     ranges: torch.Tensor,

@@ -1,0 +1,53 @@
+"""Replay of B independent scan streams (counterpart of
+``parallel/replay.py``): multi-robot fleets, config sweeps and dataset
+re-processing, with only the pose trail brought back to the host."""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from dynamic_direct_lidar_odometry_tpu_torch import pipeline
+from dynamic_direct_lidar_odometry_tpu_torch.config import DDLOConfig
+from dynamic_direct_lidar_odometry_tpu_torch.parallel import sharding
+
+
+@dataclasses.dataclass
+class BatchReplayResult:
+    poses: np.ndarray  # (B, S-1, 3)
+    quats: np.ndarray  # (B, S-1, 4)
+    num_keyframes: np.ndarray  # (B,)
+    final_states: pipeline.DDLOState  # batched: every leaf with a leading B
+
+
+def replay_batch(
+    cfg: DDLOConfig,
+    points: np.ndarray,  # (B, S, HW, 3)
+    masks: np.ndarray,  # (B, S, HW)
+    stamps: np.ndarray,  # (B, S)
+    mesh: Optional[sharding.Mesh] = None,
+) -> BatchReplayResult:
+    """Replay B streams of S scans each on the mesh's card (default
+    ``sharding.make_mesh()``: the card). Each scan step advances every
+    stream through ``pipeline.step``, one stream after another (see
+    :func:`sharding.batched_pipeline_step`)."""
+    mesh = mesh if mesh is not None else sharding.make_mesh()
+    stamps = np.asarray(stamps, np.float32)
+    state = sharding.batched_init_state(
+        cfg, points[:, 0], masks[:, 0], stamps[:, 0], device=mesh.device
+    )
+    step = sharding.batched_pipeline_step(cfg, mesh)
+    poses, quats = [], []
+    for s in range(1, points.shape[1]):
+        state, out = step(state, points[:, s], masks[:, s], stamps[:, s])
+        poses.append(out.odom.pose)
+        quats.append(out.odom.rotq)
+    return BatchReplayResult(
+        poses=torch.stack(poses, dim=1).cpu().numpy(),
+        quats=torch.stack(quats, dim=1).cpu().numpy(),
+        num_keyframes=state.odom.store.valid.sum(dim=-1, dtype=torch.int32).cpu().numpy(),
+        final_states=state,
+    )

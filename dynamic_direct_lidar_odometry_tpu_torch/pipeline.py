@@ -22,7 +22,7 @@ import torch
 
 from dynamic_direct_lidar_odometry_tpu_torch.config import DDLOConfig
 from dynamic_direct_lidar_odometry_tpu_torch.core import device as device_mod
-from dynamic_direct_lidar_odometry_tpu_torch.core import se3
+from dynamic_direct_lidar_odometry_tpu_torch.core import se3, tree
 from dynamic_direct_lidar_odometry_tpu_torch.core.cloud import SENTINEL
 from dynamic_direct_lidar_odometry_tpu_torch.detection import detection
 from dynamic_direct_lidar_odometry_tpu_torch.detection.detection import DetectionResult
@@ -83,11 +83,16 @@ def step(
     pt_size: int = 1,
 ) -> Tuple[DDLOState, DDLOOutputs]:
     """One DDLO transition. ``raw_points`` (H*W, 3) may carry NaN in
-    invalid pixels; numpy inputs are moved to the state's device."""
+    invalid pixels; numpy inputs are moved to the state's device. A
+    tensor ``timestamp`` stays on the device (a Python or numpy number is
+    uploaded)."""
     dev = state.odom.T.device
     raw_points = torch.as_tensor(raw_points, dtype=torch.float32, device=dev)
     raw_mask = torch.as_tensor(raw_mask, dtype=torch.bool, device=dev)
-    stamp = torch.tensor(float(timestamp), dtype=torch.float32, device=dev)
+    if isinstance(timestamp, torch.Tensor):
+        stamp = timestamp.to(device=dev, dtype=torch.float32).reshape(())
+    else:
+        stamp = torch.tensor(float(timestamp), dtype=torch.float32, device=dev)
     H, W = cfg.detection.rows, cfg.detection.columns
     S = cfg.capacity.max_objects
 
@@ -179,6 +184,35 @@ def step(
         new_keyframe_mask=kf_mask,
     )
     return new_state, outputs
+
+
+def step_chunk(
+    cfg: DDLOConfig,
+    state: DDLOState,
+    pts_stack,
+    mask_stack,
+    ts_stack,
+    hull_masks: Tuple[torch.Tensor, torch.Tensor] | None = None,
+) -> Tuple[DDLOState, DDLOOutputs]:
+    """K sequential :func:`step` calls (the JAX package's ``lax.scan`` of
+    them): ``pts_stack`` (K, H*W, 3), ``mask_stack`` (K, H*W),
+    ``ts_stack`` (K,). ``hull_masks`` are held for the whole chunk (hull
+    membership changes only on a keyframe insert, and a just-inserted
+    keyframe is always selected by the knn-nearest rule). Returns the
+    final state and every output field stacked over the K scans.
+
+    A plain loop: the step still reads the host inside (LM loops, hull
+    check, keyframe insert, JV solve, CCL sweeps), so the chunk cannot be
+    one CUDA graph yet. The stamps stay on the device."""
+    dev = state.odom.T.device
+    pts_stack = torch.as_tensor(pts_stack, dtype=torch.float32, device=dev)
+    mask_stack = torch.as_tensor(mask_stack, dtype=torch.bool, device=dev)
+    ts_stack = torch.as_tensor(ts_stack, dtype=torch.float32, device=dev)
+    outs = []
+    for k in range(pts_stack.shape[0]):
+        state, out = step(cfg, state, pts_stack[k], mask_stack[k], ts_stack[k], hull_masks)
+        outs.append(out)
+    return state, tree.stack(outs)
 
 
 def _empty_detection(cfg: DDLOConfig, dev) -> DetectionResult:

@@ -1,0 +1,85 @@
+"""The fork's kantplatz configuration (organized square image, the
+segmentation window, the camera residual grid) end to end through the
+port, against the JAX package on the same scans: tests/test_kantplatz.py's
+``small_kantplatz()`` scene, 3 steps.
+
+- Free-running, the port holds test_kantplatz.py's own bars (a finite
+  pose, norm below 2 m, labels -1 outside the window), and its labels,
+  residual images and keyframe flags equal JAX's on every scan.
+- Scan by scan, one port step from the JAX state lands within 1e-3 m
+  (and 1e-3 rad) of the JAX step. The PLANE covariances are bit-equal to
+  XLA's (tests/test_torch_golden_rounding.py); what is left is GICP's
+  own arithmetic (1.7e-6 m at scan 1, 8e-5 m at scan 2), which the
+  scene's unobservable z (a sensor at ground level, JAX itself at
+  z = -0.72 m where the truth is 0) amplifies when the runs are chained:
+  2.3e-3 m at scan 2 and 1.6e-2 m at scan 3 (ROADMAP queue 3).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+from test_kantplatz import small_kantplatz
+from torch_parity import n, port_cfg, rot_err
+
+from dynamic_direct_lidar_odometry_tpu import pipeline as jpipe
+from dynamic_direct_lidar_odometry_tpu.io import synthetic
+from dynamic_direct_lidar_odometry_tpu_torch import interop, pipeline
+
+
+@pytest.fixture(scope="module")
+def kant_run():
+    """The scene's 4 scans (as test_kantplatz.py renders them) and the JAX
+    run: the state before each of scans 1-3 and that scan's output."""
+    cfg = small_kantplatz()
+    H, W = cfg.detection.rows, cfg.detection.columns
+    world = synthetic.World.town(seed=11, n_static=8)
+    rng = np.random.default_rng(0)
+    T = np.eye(4)
+    scans = [synthetic.render_scan(world, T, H=H, W=W, t=0.0, rng=rng)]
+    for i in range(1, 4):
+        T[:3, 3] = [0.08 * i, 0.0, 0.0]
+        scans.append(synthetic.render_scan(world, T, H=H, W=W, t=0.1 * i, rng=rng))
+    st = jpipe.init_state(cfg, jnp.asarray(scans[0][0]), jnp.asarray(scans[0][1]), 0.0)
+    before, outs = [], []
+    for i in range(1, 4):
+        before.append(jax.tree_util.tree_map(np.asarray, st))
+        st, out = jpipe.step(cfg, st, jnp.asarray(scans[i][0]), jnp.asarray(scans[i][1]),
+                             jnp.float32(0.1 * i))
+        outs.append(out)
+    return cfg, scans, before, outs
+
+
+def _same_perception(po, jo):
+    np.testing.assert_array_equal(n(po.detections.labels), np.asarray(jo.detections.labels))
+    np.testing.assert_array_equal(n(po.detections.residual_image),
+                                  np.asarray(jo.detections.residual_image))
+    assert bool(po.keyframe_added) == bool(jo.keyframe_added)
+
+
+def test_port_runs_the_kantplatz_square_image(kant_run):
+    cfg, scans, _, j_outs = kant_run
+    pcfg = port_cfg(cfg)
+    assert pcfg.detection.residual_grid == "camera"
+    st = pipeline.init_state(pcfg, *scans[0], 0.0, device="cpu")
+    for i in range(1, 4):
+        st, out = pipeline.step(pcfg, st, *scans[i], 0.1 * i)
+        _same_perception(out, j_outs[i - 1])
+    p = n(out.odom.pose)
+    assert np.all(np.isfinite(p)) and float(np.linalg.norm(p)) < 2.0
+    lab = n(out.detections.labels)
+    assert np.all(lab[:8, :] == -1) and np.all(lab[57:, :] == -1)
+    assert np.all(lab[:, :8] == -1) and np.all(lab[:, 57:] == -1)
+
+
+@pytest.mark.parametrize("scan", [1, 2, 3])
+def test_port_step_from_the_jax_state_matches_jax_on_kantplatz(kant_run, scan):
+    cfg, scans, before, j_outs = kant_run
+    st = interop.state_from_numpy(before[scan - 1], "cpu")
+    _, po = pipeline.step(port_cfg(cfg), st, *scans[scan], 0.1 * scan)
+    jo = j_outs[scan - 1]
+    jT, pT = np.asarray(jo.odom.T), n(po.odom.T)
+    assert np.abs(pT[:3, 3] - jT[:3, 3]).max() < 1e-3
+    assert rot_err(pT[:3, :3], jT[:3, :3]) < 1e-3
+    _same_perception(po, jo)

@@ -2,8 +2,9 @@
 host) and never import the JAX package: in a subprocess with ``jax`` and
 ``dynamic_direct_lidar_odometry_tpu`` (and their submodules) blocked,
 import them and run one tiny full-DDLO step on the CPU through
-chip_smoke's own helper, two scans of ``runner.replay`` and the CLI's
-``synth``; and a static scan of their imports."""
+chip_smoke's own helper, two scans of ``runner.replay``, the CLI's
+``synth``, ``parallel.replay.replay_batch`` (2 streams, 2 scans) and
+``pipeline.step_chunk``; and a static scan of their imports."""
 
 import os
 import re
@@ -71,6 +72,19 @@ with tempfile.TemporaryDirectory() as d:
     path = os.path.join(d, "s.npz")
     assert cli.main(["synth", "--scans", "2", "--rows", "8", "--cols", "64", "--out", path]) == 0
     assert len(dataset.ScanSequence.load(path)) == 2
+import torch
+
+from dynamic_direct_lidar_odometry_tpu_torch import pipeline
+from dynamic_direct_lidar_odometry_tpu_torch.parallel import replay, sharding
+
+pts2 = np.stack([np.stack([s[0] for s in scans])] * 2)
+msk2 = np.stack([np.stack([s[1] for s in scans])] * 2)
+rb = replay.replay_batch(cfg, pts2, msk2, np.array([[0.0, 0.1]] * 2),
+                         mesh=sharding.make_mesh(1, devices=["cpu"]))
+assert rb.poses.shape == (2, 1, 3) and np.allclose(rb.poses[0], rb.poses[1]), rb.poses
+st = pipeline.init_state(cfg, scans[0][0], scans[0][1], 0.0, device="cpu")
+st, outs = pipeline.step_chunk(cfg, st, pts2[0][1:], msk2[0][1:], torch.tensor([0.1]))
+assert outs.odom.pose.shape == (1, 3) and np.allclose(outs.odom.pose[0].numpy(), rb.poses[0, 0])
 bad = [m for m in sys.modules if m.split(".")[0] in BLOCKED and sys.modules[m] is not None]
 assert not bad, bad
 print("NO_JAX_OK")

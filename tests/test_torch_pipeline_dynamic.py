@@ -8,8 +8,9 @@ within 1e-3 and the same track statuses.
 (a) exact CPU paths on both sides, tests/test_odometry.py's small_cfg,
     8 scans;
 (b) the accelerator paths: tests/test_torch_pipeline_dynamic_accel.py;
-(c) the golden trajectory tests/golden/linear_32x512_seed7.npz, its
-    scene built through the port's own ``io.synthetic``: within 5e-3 m
+(c) the golden trajectories tests/golden/linear_32x512_seed7.npz and
+    spherical_32x512_seed7.npz, the scene built through the port's own
+    ``io.synthetic``: within 5e-3 m
     where the golden is near the true pose, held to the truth at the one
     scan where the golden is a rounding-decided outlier; and, scan by
     scan, one port step from the JAX state against the JAX output;
@@ -32,6 +33,7 @@ from dynamic_direct_lidar_odometry_tpu import pipeline as jpipe
 from dynamic_direct_lidar_odometry_tpu_torch import interop, pipeline
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden", "linear_32x512_seed7.npz")
+SPHERICAL_GOLDEN = os.path.join(os.path.dirname(__file__), "golden", "spherical_32x512_seed7.npz")
 
 @pytest.fixture(scope="module")
 def dyn_run():
@@ -123,6 +125,32 @@ def test_port_reproduces_the_golden_trajectory():
         st, out = pipeline.step(cfg, st, *scans[i], 0.1 * i)
         poses.append(n(out.odom.pose))
     poses, golden = np.array(poses), np.load(GOLDEN)["poses"]
+    outlier = np.abs(golden - truth[1:]).max(axis=1) > GOLDEN_OUTLIER_M
+    assert np.flatnonzero(outlier).tolist() == [5]  # scan 6
+    np.testing.assert_allclose(poses[~outlier], golden[~outlier], atol=GOLDEN_ATOL_M)
+    _no_farther_from_truth(poses[5], golden[5], truth[6])
+
+
+def test_port_reproduces_the_spherical_golden_trajectory():
+    """ROADMAP milestone (b), spherical layout
+    (tests/golden/spherical_32x512_seed7.npz, ``golden_cfg(organized=False)``):
+    the same scene through the port's ``point_index`` scatter of the
+    per-pixel slots back to the source points (the projection is not the
+    identity here), held with the organized test's rules: 5e-3 m where the
+    golden is within 5e-2 m of the truth, and at its outlier scan no
+    farther from the truth than the golden, per axis, plus 5e-3."""
+    from golden_scenes import golden_cfg
+
+    cfg = port_cfg(golden_cfg(organized=False))
+    scans, truth = _golden_scene()
+    st = pipeline.init_state(cfg, *scans[0], 0.0, device="cpu")
+    poses = []
+    for i in range(1, 10):
+        st, out = pipeline.step(cfg, st, *scans[i], 0.1 * i)
+        poses.append(n(out.odom.pose))
+        pidx = n(out.detections.point_index).reshape(-1)
+        assert not np.array_equal(pidx, np.arange(pidx.size))  # the scatter ran
+    poses, golden = np.array(poses), np.load(SPHERICAL_GOLDEN)["poses"]
     outlier = np.abs(golden - truth[1:]).max(axis=1) > GOLDEN_OUTLIER_M
     assert np.flatnonzero(outlier).tolist() == [5]  # scan 6
     np.testing.assert_allclose(poses[~outlier], golden[~outlier], atol=GOLDEN_ATOL_M)

@@ -36,6 +36,18 @@ The CLI run goes through the JAX ``cli.main(["run", ...])`` itself, with
 configuration is the one ``_cmd_run`` builds. ``--replay bench`` or
 ``--replay cli`` writes one of the two.
 
+With ``--kantplatz`` it runs ``kantplatz_config()`` at its published
+512 x 512 with the capacity the CLI gives such a dataset
+(``capacity_for_scan(512, 512)``: a 65,536-point cloud, a 262,144-point
+submap, 128 keyframes of 32,768 points, 32 objects and tracks) over
+``utils.sequence.kantplatz_sequence`` (6 scans) and writes
+``tests/golden/torch_port_kantplatz512_jaxcpu.npz``:
+
+  poses (N,4,4) f32, keyframe_added (N-1,) bool, num_keyframes,
+  s2m_converged, detections (valid detection slots per scan),
+  outside_window (labelled pixels outside the segmentation window, per
+  scan), ate (m), scans_sha256.
+
 ``chip_smoke.py`` holds the port's runs on the GPU against these (the
 GPU host has no JAX), and uses the checksum to refuse a different
 sequence.
@@ -43,6 +55,7 @@ sequence.
     env JAX_PLATFORMS=cpu python tools/torch_port_reference_poses.py --scans 16
     env JAX_PLATFORMS=cpu python tools/torch_port_reference_poses.py --scans 16 --dynamic
     env JAX_PLATFORMS=cpu python tools/torch_port_reference_poses.py --replay [bench|cli]
+    env JAX_PLATFORMS=cpu python tools/torch_port_reference_poses.py --kantplatz
 """
 
 from __future__ import annotations
@@ -60,6 +73,7 @@ DEFAULT_OUT = os.path.join(_GOLDEN, "torch_port_dlo_steady_jaxcpu.npz")
 DYNAMIC_OUT = os.path.join(_GOLDEN, "torch_port_ddlo_steady_jaxcpu.npz")
 REPLAY_OUT = os.path.join(_GOLDEN, "torch_port_replay_steady_jaxcpu.npz")
 CLI_OUT = os.path.join(_GOLDEN, "torch_port_cli_steady_jaxcpu.npz")
+KANTPLATZ_OUT = os.path.join(_GOLDEN, "torch_port_kantplatz512_jaxcpu.npz")
 
 
 def _jax_sequence(seq, n):
@@ -128,6 +142,42 @@ def replay_goldens(which: str, n_bench: int, n_cli: int) -> None:
         _save_replay(CLI_OUT, got["res"], seq, n_cli, time.perf_counter() - t0)
 
 
+def kantplatz_golden(out_path: str) -> None:
+    import dataclasses
+
+    from dynamic_direct_lidar_odometry_tpu import config, pipeline
+    from dynamic_direct_lidar_odometry_tpu_torch.detection import detection
+    from dynamic_direct_lidar_odometry_tpu_torch.utils import metrics, sequence
+
+    seq = sequence.kantplatz_sequence()
+    n = len(seq)
+    cfg = dataclasses.replace(config.kantplatz_config(), capacity=config.capacity_for_scan(512, 512))
+    t0 = time.perf_counter()
+    state = pipeline.init_state(cfg, seq.points[0], seq.mask[0], 0.0)
+    poses = [np.eye(4, dtype=np.float32)]
+    added, conv, dets, outside = [], [], [], []
+    for i in range(1, n):
+        ts = time.perf_counter()
+        state, out = pipeline.step(cfg, state, seq.points[i], seq.mask[i], np.float32(seq.stamps[i]))
+        poses.append(np.asarray(out.odom.T, np.float32))
+        added.append(bool(out.keyframe_added))
+        conv.append(bool(out.odom.s2m_converged))
+        dets.append(int(np.asarray(out.detections.objects.valid).sum()))
+        # the port's window check reads only cfg.detection, which both packages share
+        outside.append(detection.labels_outside_window(cfg, np.array(out.detections.labels)))
+        print(f"scan {i}: {time.perf_counter() - ts:.1f} s, kf={added[-1]} s2m_converged={conv[-1]} "
+              f"detections={dets[-1]} outside_window={outside[-1]}", flush=True)
+    poses = np.stack(poses)
+    ate = metrics.ate_rmse(poses[:, :3, 3], seq.gt_poses)
+    np.savez(
+        out_path, poses=poses, keyframe_added=np.asarray(added, bool),
+        num_keyframes=np.int32(state.odom.store.count), s2m_converged=np.asarray(conv, bool),
+        detections=np.asarray(dets, np.int32), outside_window=np.asarray(outside, np.int32),
+        ate=np.float64(ate), scans_sha256=np.str_(sequence.sequence_sha256(seq, n)),
+    )
+    print(f"wrote {out_path}: N={n} ATE={ate * 1e3:.3f} mm ({time.perf_counter() - t0:.0f} s on the CPU)")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scans", type=int, default=16)
@@ -136,6 +186,8 @@ def main(argv=None) -> int:
     ap.add_argument("--replay", nargs="?", const="all", choices=("all", "bench", "cli"),
                     help="the replay goldens (runner.replay and cli run) instead")
     ap.add_argument("--cli-scans", type=int, default=8)
+    ap.add_argument("--kantplatz", action="store_true",
+                    help="kantplatz_config() at 512 x 512 over kantplatz_sequence() instead")
     args = ap.parse_args(argv)
     out_path = args.out or (DYNAMIC_OUT if args.dynamic else DEFAULT_OUT)
 
@@ -149,6 +201,9 @@ def main(argv=None) -> int:
         raise SystemExit("run with JAX_PLATFORMS=cpu: the reference is the CPU path")
     if args.replay:
         replay_goldens(args.replay, args.scans, args.cli_scans)
+        return 0
+    if args.kantplatz:
+        kantplatz_golden(args.out or KANTPLATZ_OUT)
         return 0
 
     cfg = config.bench_config(dynamic_detection=args.dynamic)
