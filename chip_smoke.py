@@ -105,15 +105,38 @@ Phases, in order; any failure exits non-zero and prints no result:
    ``bench_config()``, started at scans 0, 8, 16 and 24. Pass: poses
    within 2e-4 m of single-stream ``pipeline.step`` runs of each stream
    on the card.
+15. Point-parallel on 2 ranks: two spawned processes, a gloo group on the
+   one card (NCCL refuses two ranks on one device), each under a time
+   limit. (a) ``sharding.batched_align(point_sharded=True)`` of phase
+   13's 8 problems (each rank 8,192 of the 16,384 source rows against the
+   whole 65,536-row target, the sums gathered and added in rank order
+   inside every LM iteration) against phase 13's 8 single aligns. Pass:
+   iterations and inliers equal, translation within 1e-5 m, rotation
+   within 1e-6, both ranks' results bit-equal, one ``nn1_sparse_batched``
+   launch per batched linearization on each rank. (b)
+   ``sharding.point_parallel_pipeline_step`` over ``bench_config()``
+   scans 1-8 from ``init_state`` on scan 0. Pass: poses within 10 mm of
+   the JAX CPU golden, keyframe flags equal, every S2M converged, the two
+   ranks' states and outputs bit-equal after every scan, residuals
+   gathered to full length, and on each rank ``nn1_sparse`` launched for
+   every linearization and ``knn_classes`` for the shard's covariances
+   (8,192 queries against the whole scan); the step itself raises if an
+   op has no deterministic implementation or the ranks' states differ
+   (``distributed.check_agree``). Times (CUDA events, each rank): ms per
+   scan and per registration, and the agreement check alone; two ranks
+   share one card, so they say nothing of multi-card scaling.
 
-Phase 3 also holds the batched sparse entry (``nn1_sparse_batched``,
-8 stacked S2M problems: the submap, its ties, its long list and its
-sentinels) to its plain version and to 8 single calls, every row, and
+Phase 3 also holds the lane-class kernel with half the queries (each
+half of the 16,384-row cloud against all of it, as phase 15's ranks call
+it), the batched sparse entry (``nn1_sparse_batched``, 8 stacked S2M
+problems: the submap, its ties, its long list and its sentinels) to its
+plain version and to 8 single calls, every row, and
 ``covariance.regularize_plane`` on the card to the host's bits.
 
 The line before the last is the kernel table as JSON (``nn1_sparse``'s
-launches summed over phases 4, 5, 9, 10, 11, 12 and 14;
-``nn1_sparse_batched``'s from phase 13); the last line is
+launches summed over phases 4, 5, 9, 10, 11, 12, 14 and 15;
+``nn1_sparse_batched``'s from phases 13 and 15; ``knn_classes``' from
+phases 7 and 15, phase 15's summed over both ranks); the last line is
 ``{"ok": true, "device": {...}}`` (full runs only).
 """
 
@@ -147,6 +170,7 @@ CHUNK_ATOL_M = 1e-6  # step_chunk against the same steps, one by one
 BATCH_T_ATOL_M, BATCH_R_ATOL = 1e-5, 1e-6  # batched_align against single aligns
 REPLAY_BATCH_ATOL_M = 2e-4  # tests/test_parallel.py:220-222's bar
 CHUNK_K, ALIGN_B, STREAMS, STREAM_SCANS = 8, 8, 4, 8
+PT, PT_SCANS, PT_TIMEOUT_S = 2, 8, 480  # phase 15: ranks on the one card, scans, each rank's limit
 WARMUP_SCANS = 2
 DENSE_SCANS = 8
 STATE_ATOL = 1e-4
@@ -538,11 +562,14 @@ def check_sparse_batched(name, queries, targets, radius):
     check(same_plain, f"nn1_sparse_batched {name}: kernel differs from its plain version (max |d| {err})")
     check(same_single, f"nn1_sparse_batched {name}: differs from {B} single calls")
     pairs = float(counts.sum()) * q_tile * t_chunk
+    ar = torch.arange(t_chunk, device=q.device)
+    cols = [(lists[i, :c, None].long() * t_chunk + ar).reshape(-1) for i, c in enumerate(counts.tolist())]
     return _record(
         "nn1_sparse_batched", name, B * Q, targets.shape[1], err, same_plain and same_single,
         pairs, (qs.numel() + prep.tt.numel()) * 4 + 8 * B * Q,
         lambda: nn_cuda.nn1_sparse_batched_chunks(*args),
-        cuda_ms(lambda: nn_cuda.nn1_sparse_batched_reference(*args)), None,
+        cuda_ms(lambda: nn_cuda.nn1_sparse_batched_reference(*args)),
+        _cdist_tiles(qs, prep.tt.T.contiguous(), q_tile, cols),
         radius=radius, B=B, in_radius=int((dr < radius * radius).sum()),
         rows_identical_to_single_calls=same_single, max_tile_chunks=int(counts.max()),
     )
@@ -1080,7 +1107,29 @@ def s2m_calls(keep: int):
         gicp.align = real
 
 
-def batched_align_phase(calls, card):
+def align_problems(calls):
+    """Phase 5's last 8 S2M registrations, each guess moved by
+    (0.03 (b + 1), -0.02 b, 0) m and turned by 0.005 b rad (every stream
+    starts off its optimum by its own amount), stacked; with the settings
+    and the 8 single-stream ``gicp.align`` results on the card."""
+    import torch
+
+    from dynamic_direct_lidar_odometry_tpu_torch.ops import gicp
+
+    check(len(calls) == ALIGN_B, f"phase 5 recorded {len(calls)} S2M registrations")
+    settings = calls[0][1]
+    moved = []
+    for b, (args, _) in enumerate(calls):
+        th = 0.005 * b
+        d = torch.eye(4, device=args[6].device)
+        d[:2, :2] = torch.tensor([[np.cos(th), -np.sin(th)], [np.sin(th), np.cos(th)]])
+        d[:3, 3] = torch.tensor([0.03 * (b + 1), -0.02 * b, 0.0])
+        moved.append(args[:6] + (d @ args[6],))
+    batch = [torch.stack([m[i] for m in moved]) for i in range(7)]
+    return batch, settings, [gicp.align(*m, settings) for m in moved]
+
+
+def batched_align_phase(problems, card):
     """Phase 13: ``batched_align`` of phase 5's last 8 S2M registrations
     against 8 single-stream aligns, on the card."""
     import torch
@@ -1089,20 +1138,8 @@ def batched_align_phase(calls, card):
     from dynamic_direct_lidar_odometry_tpu_torch.ops import gicp, nn_cuda
     from dynamic_direct_lidar_odometry_tpu_torch.parallel import sharding
 
-    check(len(calls) == ALIGN_B, f"phase 5 recorded {len(calls)} S2M registrations")
-    settings = calls[0][1]
-    # each guess moved by (0.03 (b + 1), -0.02 b, 0) m and turned by
-    # 0.005 b rad: every stream starts off its optimum by its own amount
-    moved = []
-    for b, (args, _) in enumerate(calls):
-        th = 0.005 * b
-        d = torch.eye(4, device=args[6].device)
-        d[:2, :2] = torch.tensor([[np.cos(th), -np.sin(th)], [np.sin(th), np.cos(th)]])
-        d[:3, 3] = torch.tensor([0.03 * (b + 1), -0.02 * b, 0.0])
-        moved.append(args[:6] + (d @ args[6],))
-    calls = [(a, settings) for a in moved]
-    batch = [torch.stack([c[0][i] for c in calls]) for i in range(7)]
-    singles = [gicp.align(*c[0], settings) for c in calls]
+    batch, settings, singles = problems
+    calls = [(tuple(x[b] for x in batch), settings) for b in range(ALIGN_B)]
     mesh = sharding.make_mesh()
     aligner = sharding.batched_align(mesh, settings)
     nn_cuda.LAUNCHES.clear()
@@ -1182,13 +1219,199 @@ def replay_batch_phase(cfg, seq, card):
     return launches
 
 
+def _digest(tree) -> str:
+    """sha256 over every tensor leaf of a container, in field order."""
+    import hashlib
+
+    import torch
+
+    h = hashlib.sha256()
+
+    def walk(x):
+        if isinstance(x, tuple) and hasattr(x, "_fields"):
+            for v in x:
+                walk(v)
+        elif isinstance(x, torch.Tensor):
+            h.update(x.detach().cpu().contiguous().numpy().tobytes())
+
+    walk(tree)
+    return h.hexdigest()
+
+
+def pt_rank(rank: int, port: int, data_path: str, out_dir: str) -> None:
+    """One rank of phase 15, in a spawned process: a gloo group of PT
+    ranks on the one card. (a) ``batched_align(point_sharded=True)`` of
+    phase 13's problems; (b) ``point_parallel_pipeline_step`` over scans
+    1..PT_SCANS. Writes ``rank<r>.json``; any failure exits non-zero."""
+    import torch
+
+    import dynamic_direct_lidar_odometry_tpu_torch  # noqa: F401  (sets the TF32 flags)
+    from dynamic_direct_lidar_odometry_tpu_torch import config
+    from dynamic_direct_lidar_odometry_tpu_torch.ops import nn_cuda
+    from dynamic_direct_lidar_odometry_tpu_torch.parallel import distributed, sharding
+
+    torch.cuda.set_device(0)
+    distributed.initialize(f"127.0.0.1:{port}", PT, rank, backend="gloo")
+    nn_cuda.build()
+    data = torch.load(data_path, weights_only=False)
+    dev = torch.device("cuda", 0)
+    mesh = sharding.make_mesh(PT, pt=PT)
+    out = dict(rank=rank)
+
+    # (a) point-sharded batched_align
+    batch = [x.to(dev) for x in data["batch"]]
+    aligner = sharding.batched_align(mesh, data["settings"], point_sharded=True)
+    nn_cuda.LAUNCHES.clear()
+    res = aligner(*batch)
+    torch.cuda.synchronize()
+    out["align"] = dict(
+        T=res.T.cpu().numpy().tolist(), iterations=res.iterations.tolist(),
+        inliers=res.num_inliers.tolist(), launches=dict(nn_cuda.LAUNCHES),
+        ms_per_registration=cuda_ms(lambda: aligner(*batch), reps=3) / len(res.iterations),
+        digest=_digest(res),
+    )
+
+    # (b) the point-parallel pipeline step over the bench scans
+    cfg = config.bench_config()
+    pts, msk, ts = data["points"], data["masks"], data["stamps"]
+    states = sharding.batched_init_state(cfg, pts[:1], msk[:1], ts[:1], device=dev)
+    step = sharding.point_parallel_pipeline_step(cfg, mesh)
+    scans = []
+    for i in range(1, len(pts)):
+        nn_cuda.LAUNCHES.clear()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        states, outs = step(states, pts[i:i + 1], msk[i:i + 1], ts[i:i + 1])
+        b.record()
+        b.synchronize()
+        scans.append(dict(
+            ms=a.elapsed_time(b), launches=dict(nn_cuda.LAUNCHES),
+            linearizations=int(outs.odom.s2s_iterations[0]) + int(outs.odom.s2m_iterations[0]) + 1,
+            s2m_converged=bool(outs.odom.s2m_converged[0]),
+            keyframe_added=bool(outs.keyframe_added[0]), T=outs.odom.T[0].cpu().numpy().tolist(),
+            residuals_len=int(outs.odom.residuals.shape[1]),
+            state_digest=_digest(states), output_digest=_digest(outs),
+        ))
+    out["pipeline"] = scans
+    # the per-scan rank agreement check alone (a collective: both ranks
+    # time the same calls)
+    from dynamic_direct_lidar_odometry_tpu_torch.core import tree
+
+    one = tree.index(states, 0)
+    out["check_agree_ms"] = cuda_ms(lambda: distributed.check_agree(one, mesh.pt_group), reps=5)
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+
+
+def point_parallel_phase(problems, seq, ref, card):
+    """Phase 15: PT ranks (spawned processes, gloo) on the one card:
+    ``batched_align(point_sharded=True)`` of phase 13's problems against
+    the single aligns, and ``point_parallel_pipeline_step`` over
+    ``bench_config()`` scans 1..PT_SCANS against the JAX CPU golden.
+    Returns the launches of both ranks, summed: {kernel: n}."""
+    import multiprocessing as mp
+    import socket
+    import tempfile
+
+    import torch
+
+    from dynamic_direct_lidar_odometry_tpu_torch import config
+
+    n_points = config.bench_config().capacity.max_points
+    batch, settings, singles = problems
+    with tempfile.TemporaryDirectory() as tmp, socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+        sock.close()
+        data_path = os.path.join(tmp, "inputs.pt")
+        m = PT_SCANS + 1
+        torch.save(dict(batch=[x.cpu() for x in batch], settings=settings,
+                        points=seq.points[:m], masks=seq.mask[:m],
+                        stamps=seq.stamps[:m].astype(np.float32)), data_path)
+        ctx = mp.get_context("spawn")
+        procs = [ctx.Process(target=pt_rank, args=(r, port, data_path, tmp)) for r in range(PT)]
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        try:
+            for p in procs:
+                p.join(max(1.0, PT_TIMEOUT_S - (time.perf_counter() - t0)))
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        codes = [p.exitcode for p in procs]
+        check(codes == [0] * PT, f"point-parallel ranks exited {codes}")
+        ranks = [json.load(open(os.path.join(tmp, f"rank{r}.json"))) for r in range(PT)]
+
+    # (a) against the single aligns
+    al = ranks[0]["align"]
+    T = np.array(al["T"])
+    t_err = max(float(np.abs(T[b, :3, 3] - s.T[:3, 3].cpu().numpy()).max()) for b, s in enumerate(singles))
+    r_err = max(rot_err(T[b, :3, :3], s.T[:3, :3].cpu().numpy()) for b, s in enumerate(singles))
+    lin = max(al["iterations"]) + (1 if settings.compute_residuals else 0)
+    # (b) against the golden
+    pl = ranks[0]["pipeline"]
+    poses = np.array([r["T"] for r in pl])
+    div = float(np.linalg.norm(poses[:, :3, 3] - ref["poses"][1:PT_SCANS + 1, :3, 3], axis=1).max())
+    flags = [r["keyframe_added"] for r in pl]
+    ms = [r["ms"] for r in pl]
+    rec = dict(
+        ranks=PT, card=card, shared_card=True,
+        align=dict(iterations=al["iterations"], single_iterations=[int(s.iterations) for s in singles],
+                   inliers=al["inliers"], single_inliers=[int(s.num_inliers) for s in singles],
+                   translation_max_abs_m=t_err, rotation_max=r_err, batched_linearizations=lin,
+                   launches=[r["align"]["launches"] for r in ranks],
+                   ms_per_registration=[r["align"]["ms_per_registration"] for r in ranks]),
+        pipeline=dict(scans=PT_SCANS, max_divergence_mm=div * 1e3, keyframe_flags=flags,
+                      keyframe_flags_jax=ref["keyframe_added"][:PT_SCANS].tolist(),
+                      step_ms=[[r["ms"] for r in k["pipeline"]] for k in ranks],
+                      median_ms=statistics.median(ms[WARMUP_SCANS:]),
+                      check_agree_ms=[r["check_agree_ms"] for r in ranks],
+                      launches=[[r["launches"] for r in k["pipeline"]] for k in ranks],
+                      linearizations=[[r["linearizations"] for r in k["pipeline"]] for k in ranks]),
+        note="two ranks share one card: these times say nothing of multi-card scaling",
+    )
+    print("point_parallel " + json.dumps(rec), flush=True)
+    check(al["iterations"] == rec["align"]["single_iterations"], "point-sharded align iterations differ")
+    check(al["inliers"] == rec["align"]["single_inliers"], "point-sharded align inliers differ")
+    check(t_err <= BATCH_T_ATOL_M and r_err <= BATCH_R_ATOL,
+          f"point-sharded align differs from single aligns by {t_err} m, {r_err} rad")
+    check(all(r["align"]["digest"] == al["digest"] for r in ranks), "ranks' align results differ")
+    check(all(r["align"]["launches"].get("nn1_sparse_batched", 0) == lin for r in ranks),
+          f"point-sharded align launched {rec['align']['launches']} for {lin} linearizations")
+    check(div <= DIVERGENCE_BAR_M, f"point-parallel poses diverge {div * 1e3:.3f} mm from JAX")
+    check(flags == rec["pipeline"]["keyframe_flags_jax"], "point-parallel keyframe flags differ from JAX")
+    for i in range(PT_SCANS):
+        scan = [k["pipeline"][i] for k in ranks]
+        check(all(r["state_digest"] == scan[0]["state_digest"]
+                  and r["output_digest"] == scan[0]["output_digest"] for r in scan),
+              f"ranks' states or outputs differ after scan {i + 1}")
+        for r in scan:
+            check(r["s2m_converged"], f"point-parallel S2M did not converge at scan {i + 1}")
+            check(r["residuals_len"] == n_points, f"residuals of {r['residuals_len']} rows, not {n_points}")
+            check(r["launches"].get("nn1_sparse", 0) >= r["linearizations"],
+                  f"scan {i + 1}: nn1_sparse launched {r['launches']} for {r['linearizations']} linearizations")
+            check(r["launches"].get("knn_classes", 0) >= 1,
+                  f"scan {i + 1}: knn_classes not launched for the point-parallel covariances")
+    total = {}
+    for k in ranks:
+        for part in [k["align"]["launches"]] + [r["launches"] for r in k["pipeline"]]:
+            for name, v in part.items():
+                total[name] = total.get(name, 0) + v
+    return total
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Smoke check of the PyTorch port on one GPU")
-    ap.add_argument("--phases", default=",".join(str(p) for p in range(1, 15)),
+    ap.add_argument("--phases", default=",".join(str(p) for p in range(1, 16)),
                     help="comma-separated subset; the check is the full run")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
-    full = phases == set(range(1, 15))
+    full = phases == set(range(1, 16))
 
     import torch
 
@@ -1235,7 +1458,7 @@ def main(argv=None) -> int:
     cfg_dlo = config.bench_config(dynamic_detection=False)
     cfg = config.bench_config()
     seq = None
-    if phases & (set(range(3, 15)) - {11}):
+    if phases & (set(range(3, 16)) - {11}):
         t0 = time.perf_counter()
         seq = sequence.steady_state_sequence(64)
         print(f"sequence: 64 scans {seq.H}x{seq.W} in {time.perf_counter() - t0:.1f} s (host)", flush=True)
@@ -1267,6 +1490,8 @@ def main(argv=None) -> int:
             check_dense("sentinels_nonmultiple", odd_q, odd_t),
             check_dense("ties_16k_x_64k", query, ties_t),
             check_classes(f"cov_k{k}", query, query, k),
+            check_classes(f"cov_k{k}_half_query_0", query[: query.shape[0] // 2], query, k),
+            check_classes(f"cov_k{k}_half_query_1", query[query.shape[0] // 2:], query, k),
             check_classes("cov_k20", query, query, 20),
             check_classes("sentinels_nonmultiple", odd_q, odd_q[: odd_q.shape[0] - 100], k),
             check_classes(f"cov_k{k}_r5", query, query, k, prune_radius=5.0),
@@ -1313,7 +1538,7 @@ def main(argv=None) -> int:
     keep = n // 2
     inputs = None
     s2m = []
-    if phases & {5, 6, 13}:
+    if phases & {5, 6, 13, 15}:
         # ---- 5. full DDLO, default backends ----
         nn_cuda.LAUNCHES.clear()
         segmentation.SWEEPS.clear()
@@ -1397,13 +1622,21 @@ def main(argv=None) -> int:
         # ---- 12. step_chunk ----
         sparse_launches[12] = chunk_phase(cfg, seq, dev)
 
+    problems = align_problems(s2m) if phases & {13, 15} else None
     if 13 in phases:
         # ---- 13. batched_align: one batched sparse launch per linearization ----
-        launches["nn1_sparse_batched"] = batched_align_phase(s2m, card)
+        launches["nn1_sparse_batched"] = batched_align_phase(problems, card)
 
     if 14 in phases:
         # ---- 14. replay_batch ----
         sparse_launches[14] = replay_batch_phase(cfg, seq, card)
+
+    if 15 in phases:
+        # ---- 15. point-parallel alignment and pipeline, PT ranks ----
+        pt_launches = point_parallel_phase(problems, seq, ref_ddlo, card)
+        sparse_launches[15] = pt_launches.get("nn1_sparse", 0)
+        for name in ("nn1_sparse_batched", "knn_classes"):
+            launches[name] = launches.get(name, 0) + pt_launches.get(name, 0)
     launches["nn1_sparse"] = sum(sparse_launches.values())
     print(f"nn1_sparse launches by phase: {json.dumps(sparse_launches)}", flush=True)
 

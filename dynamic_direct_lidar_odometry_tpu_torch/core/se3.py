@@ -147,15 +147,16 @@ def se3_exp(d: torch.Tensor) -> torch.Tensor:
 def transform_points(T: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
     """Apply 4x4 transform (..., 4, 4) to points (..., N, 3).
 
-    Explicit elementwise muls/adds, not a matmul, so the result is the
-    JAX package's arithmetic on every device."""
-    R = T[..., :3, :3]
-    out = (
-        pts[..., 0:1] * R[..., None, :, 0]
-        + pts[..., 1:2] * R[..., None, :, 1]
-        + pts[..., 2:3] * R[..., None, :, 2]
-    )
-    return out + T[..., None, :3, 3]
+    Rounds as the jitted JAX package does on the CPU, on every device:
+    XLA contracts the sum into ``fma(z, R2, fma(x, R0, y R1)) + t``, here
+    each FMA through f64, where the f32 products are exact. (GICP's loops
+    on the card take a plain elementwise form: ``gicp.TORCH``.)"""
+    f = torch.float64
+    p, R = pts.to(f), T[..., :3, :3].to(f)
+    s = (p[..., 1:2] * R[..., None, :, 1]).float().to(f)
+    s = torch.addcmul(s, p[..., 0:1], R[..., None, :, 0]).float().to(f)
+    s = torch.addcmul(s, p[..., 2:3], R[..., None, :, 2]).float()
+    return s + T[..., None, :3, 3]
 
 
 def identity(dtype=torch.float32, *, device="cuda") -> torch.Tensor:

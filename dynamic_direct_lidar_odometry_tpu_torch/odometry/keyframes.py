@@ -470,7 +470,9 @@ def _top_k_ties_mask(ds: torch.Tensor, eligible: torch.Tensor, k: int) -> torch.
     distance (pushSubmapIndices, odom.cc:1180-1213)."""
     d = torch.where(eligible, ds, _INF)
     k = min(k, d.shape[0])
-    kth = torch.kthvalue(d, k).values
+    # the k-th value of a sort: kthvalue on the card has no deterministic
+    # implementation, which the point-parallel step requires
+    kth = torch.sort(d).values[k - 1]
     return eligible & (d <= kth)
 
 

@@ -6,7 +6,10 @@ and the same Levenberg-Marquardt / Gauss-Newton loops as the JAX
 package. ``lax.while_loop`` becomes a Python loop: the accept/reject and
 convergence tests read one scalar per LM iteration back to the host.
 All scalar LM state stays in f32 on the device, so the accept/reject
-decisions are the JAX package's arithmetic.
+decisions are the JAX package's arithmetic. The rounding-sensitive steps
+(point transform, sums, inverse, solve, exp, compose) come from
+:func:`arithmetic`: on the host ``ops/gicp_xla.py`` (XLA's CPU order, the
+jitted JAX package's bits), on the card :data:`TORCH`.
 
 Correspondence backend (``GICPSettings.nn_impl``): "sparse" launches the
 CUDA kernel on CUDA tensors (``ops/nn_cuda.py``) with the target-side
@@ -18,10 +21,13 @@ from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
+import types
+
 import torch
 
 from dynamic_direct_lidar_odometry_tpu_torch.core import device, se3
 from dynamic_direct_lidar_odometry_tpu_torch.core.cloud import SENTINEL
+from dynamic_direct_lidar_odometry_tpu_torch.ops import gicp_xla
 from dynamic_direct_lidar_odometry_tpu_torch.ops import knn as knn_ops
 from dynamic_direct_lidar_odometry_tpu_torch.ops import nn_cuda
 
@@ -82,36 +88,126 @@ def inv3x3(m: torch.Tensor) -> torch.Tensor:
     return adj * inv_det[..., None, None]
 
 
-def solve6_ldlt(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def _sub(v: torch.Tensor, p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    return v - p * q
+
+
+def solve6_ldlt(A: torch.Tensor, b: torch.Tensor, sub=_sub) -> torch.Tensor:
     """Solve the symmetric 6x6 normal equations by the JAX package's
     unrolled LDLT (the reference's Eigen::LDLT), operation for operation,
     so the LM accept/reject decisions match. ``A`` (..., 6, 6), ``b``
-    (..., 6): leading dims are independent systems."""
+    (..., 6): leading dims are independent systems. ``sub(v, p, q)`` is
+    every ``v - p q`` of the factorization and the substitutions
+    (``gicp_xla.sub``: one FMA, as XLA contracts it on the CPU)."""
     L = [[None] * 6 for _ in range(6)]
     D = [None] * 6
     for j in range(6):
         d = A[..., j, j]
         for k in range(j):
-            d = d - L[j][k] * L[j][k] * D[k]
+            d = sub(d, L[j][k] * L[j][k], D[k])
         D[j] = torch.where(torch.abs(d) < 1e-30, 1e-30, d)
         for i in range(j + 1, 6):
             v = A[..., i, j]
             for k in range(j):
-                v = v - L[i][k] * L[j][k] * D[k]
+                v = sub(v, L[i][k] * L[j][k], D[k])
             L[i][j] = v / D[j]
     y = [None] * 6
     for i in range(6):
         v = b[..., i]
         for k in range(i):
-            v = v - L[i][k] * y[k]
+            v = sub(v, L[i][k], y[k])
         y[i] = v
     x = [None] * 6
     for i in reversed(range(6)):
         v = y[i] / D[i]
         for k in range(i + 1, 6):
-            v = v - L[k][i] * x[k]
+            v = sub(v, L[k][i], x[k])
         x[i] = v
     return torch.stack(x, dim=-1)
+
+
+def _transform_points(T: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
+    """``se3.transform_points`` in plain f32 elementwise muls and adds
+    (fewer launches than its f64 FMA form)."""
+    R = T[..., :3, :3]
+    out = (
+        pts[..., 0:1] * R[..., None, :, 0]
+        + pts[..., 1:2] * R[..., None, :, 1]
+        + pts[..., 2:3] * R[..., None, :, 2]
+    )
+    return out + T[..., None, :3, 3]
+
+
+def _linearize_terms(src_t, vf, R, cov_B, src_covs, B):
+    """The sums of one linearization after the correspondence search, by
+    matrix products (per stream over a leading batch axis): returns
+    (M, y0, H, b). ``src_t`` the transformed source, ``vf`` validity as
+    0/1, ``R`` the pose's rotation, ``cov_B`` / ``B`` the winners'
+    covariances and points."""
+    batched = src_t.dim() == 3
+    Rn = R[:, None] if batched else R
+    RCAR = torch.matmul(torch.matmul(Rn, src_covs), Rn.transpose(-1, -2))
+    M = inv3x3(cov_B + RCAR)  # (..., N, 3, 3)
+
+    e = (B - src_t) * vf[..., None]
+    Me = torch.matmul(M, e[..., None])[..., 0]
+    S = se3.skew(src_t)
+    eye = torch.eye(3, dtype=S.dtype, device=S.device).expand_as(S)
+    J = torch.cat([S, -eye], dim=-1) * vf[..., None, None]  # (..., N, 3, 6)
+    MJ = torch.matmul(M, J)
+    N = src_t.shape[-2]
+    J2t = J.reshape(*J.shape[:-3], N * 3, 6).transpose(-1, -2)
+    MJ2 = MJ.reshape(*J.shape[:-3], N * 3, 6)
+    Me2 = Me.reshape(*J.shape[:-3], N * 3)
+    if batched:
+        # the reductions stream by stream, each the single-stream call on
+        # the same shapes, so a stream's sums round as its align's do
+        y0 = torch.stack([torch.sum(x) for x in e * Me])
+        H = torch.stack([torch.matmul(j, m) for j, m in zip(J2t, MJ2)])
+        b = torch.stack([torch.matmul(j, v) for j, v in zip(J2t, Me2)])
+    else:
+        y0 = torch.sum(e * Me)
+        H = torch.matmul(J2t, MJ2)
+        b = torch.matmul(J2t, Me2)
+    return M, y0, H, b
+
+
+def _error(src_t, vf, M, B):
+    """sum e^T M e with the weights held (per stream over a leading batch
+    axis)."""
+    e = (B - src_t) * vf[..., None]
+    Me = torch.matmul(M, e[..., None])[..., 0]
+    if src_t.dim() == 3:
+        return torch.stack([torch.sum(x) for x in e * Me])
+    return torch.sum(e * Me)
+
+
+# The card's arithmetic (eager PyTorch; it runs on any device). The LM
+# loops take every rounding-sensitive step from one such namespace;
+# ``gicp_xla`` has the same names.
+TORCH = types.SimpleNamespace(
+    transform_points=_transform_points, compose=se3.compose, se3_exp=se3.se3_exp,
+    sub=_sub, linearize_terms=_linearize_terms, error=_error,
+)
+
+
+def arithmetic(dev: torch.device):
+    """GICP's arithmetic on ``dev``: on the host XLA's CPU rounding
+    (``ops/gicp_xla.py``: the jitted JAX package's bits, numpy), on the
+    card :data:`TORCH`."""
+    return gicp_xla if dev.type == "cpu" else TORCH
+
+
+def _allsum_fn(group):
+    """Sum of tensors over the point-sharded process ``group``
+    (``distributed.allsum``: the same bits on every rank), or the tensors
+    as they are without one."""
+    if group is None:
+        return lambda *xs: xs
+    from dynamic_direct_lidar_odometry_tpu_torch.parallel import distributed
+
+    distributed.check_group(group)
+    return lambda *xs: distributed.allsum(xs, group)
 
 
 def _linearize(
@@ -127,6 +223,7 @@ def _linearize(
     prune_dilation: float = 1.0,
     sparse_prep: nn_cuda.SparseTarget | None = None,
     tgt_feat: torch.Tensor | None = None,
+    ar=None,
 ):
     """One GICP linearization at pose T: correspondences, Mahalanobis
     weights, error y0 = sum e^T M e and the normal equations H, b with
@@ -135,10 +232,11 @@ def _linearize(
     With a leading batch axis (T (B, 4, 4), clouds (B, N, 3), ...) every
     stream is linearized at once; ``sparse_prep`` is then a
     :class:`nn_cuda.BatchedSparseTarget` and the correspondences of all
-    streams are one launch of the batched sparse kernel."""
+    streams are one launch of the batched sparse kernel. ``ar``: the
+    arithmetic (:func:`arithmetic` of the device by default)."""
+    ar = arithmetic(src_pts.device) if ar is None else ar
     batched = src_pts.dim() == 3
-    R = T[..., :3, :3]
-    src_t = se3.transform_points(T, src_pts)
+    src_t = ar.transform_points(T, src_pts)
     src_t_q = torch.where(src_mask[..., None], src_t, SENTINEL)
     r = max_corr_dist * prune_dilation
 
@@ -172,43 +270,15 @@ def _linearize(
         feat = tgt_feat[sel]
     B = feat[..., :3]
     cov_B = feat[..., 3:].unflatten(-1, (3, 3))
-    Rn = R[:, None] if batched else R
-    RCAR = torch.matmul(torch.matmul(Rn, src_covs), Rn.transpose(-1, -2))
-    M = inv3x3(cov_B + RCAR)  # (..., N, 3, 3)
-
-    e = (B - src_t) * vf[..., None]
-    Me = torch.matmul(M, e[..., None])[..., 0]
-    S = se3.skew(src_t)
-    eye = torch.eye(3, dtype=S.dtype, device=S.device).expand_as(S)
-    J = torch.cat([S, -eye], dim=-1) * vf[..., None, None]  # (..., N, 3, 6)
-    MJ = torch.matmul(M, J)
-    N = src_pts.shape[-2]
-    J2t = J.reshape(*J.shape[:-3], N * 3, 6).transpose(-1, -2)
-    MJ2 = MJ.reshape(*J.shape[:-3], N * 3, 6)
-    Me2 = Me.reshape(*J.shape[:-3], N * 3)
-    if batched:
-        # the reductions stream by stream, each the single-stream call on
-        # the same shapes, so a stream's sums round as its align's do
-        y0 = torch.stack([torch.sum(x) for x in e * Me])
-        H = torch.stack([torch.matmul(j, m) for j, m in zip(J2t, MJ2)])
-        b = torch.stack([torch.matmul(j, v) for j, v in zip(J2t, Me2)])
-    else:
-        y0 = torch.sum(e * Me)
-        H = torch.matmul(J2t, MJ2)
-        b = torch.matmul(J2t, Me2)
+    M, y0, H, b = ar.linearize_terms(src_t, vf, T[..., :3, :3], cov_B, src_covs, B)
     return y0, H, b, (idx, valid, M, B, sqd)
 
 
-def _compute_error(T, src_pts, aux):
+def _compute_error(T, src_pts, aux, ar):
     """sum e^T M e at a candidate pose, correspondences and weights held
     from the last linearization (per stream over a leading batch axis)."""
     _, valid, M, B, _ = aux
-    src_t = se3.transform_points(T, src_pts)
-    e = (B - src_t) * valid[..., None].to(src_pts.dtype)
-    Me = torch.matmul(M, e[..., None])[..., 0]
-    if src_pts.dim() == 3:
-        return torch.stack([torch.sum(x) for x in e * Me])
-    return torch.sum(e * Me)
+    return ar.error(ar.transform_points(T, src_pts), valid.to(src_pts.dtype), M, B)
 
 
 def _is_converged(delta: torch.Tensor, s: GICPSettings) -> torch.Tensor:
@@ -229,20 +299,24 @@ def align(
     tgt_covs: torch.Tensor,
     guess: torch.Tensor,
     settings: GICPSettings = GICPSettings(),
-    axis_name: str | None = None,
+    axis_name: torch.distributed.ProcessGroup | None = None,
 ) -> GICPResult:
     """GICP alignment: T minimizing sum (b - T a)^T M (b - T a), by the
     LM stepper (lsq_registration_impl.hpp:176-232) or the GN stepper
     (:156-173), with the JAX package's degenerate-H guard, rho 0/0 guard
-    and final residual pass."""
-    if axis_name is not None:
-        raise NotImplementedError(
-            "point-sharded align (axis_name) is not ported yet: ROADMAP.md "
-            "queue 1 item 1"
-        )
+    and final residual pass.
+
+    ``axis_name``: a ``torch.distributed`` process group (a mesh's
+    ``pt_group``, the JAX package's mesh axis). The SOURCE rows are this
+    rank's share of a point-sharded cloud; the normal equations
+    (y0, H, b), every error re-evaluation and the inlier count are summed
+    over the group inside every LM iteration. The target is whole on
+    every rank; residuals and correspondences stay the shard's own."""
+    allsum = _allsum_fn(axis_name)
     s = settings
     dev = src_pts.device
     f32 = torch.float32
+    ar = arithmetic(dev)
     tgt_q = torch.where(tgt_mask[:, None], tgt_pts, SENTINEL)
 
     # target-side sparse prep and packed winner features, hoisted out of
@@ -253,11 +327,12 @@ def align(
     tgt_feat = torch.cat([tgt_q, tgt_covs.reshape(tgt_pts.shape[0], 9)], dim=1)
 
     def lin(T, nn_impl=s.nn_impl, prune_dilation=1.0):
-        return _linearize(
+        y0, H, b, aux = _linearize(
             T, src_pts, src_mask, src_covs, tgt_q, tgt_mask, tgt_covs,
             s.max_correspondence_distance, nn_impl, prune_dilation,
-            sparse_prep=sparse_prep, tgt_feat=tgt_feat,
+            sparse_prep=sparse_prep, tgt_feat=tgt_feat, ar=ar,
         )
+        return (*allsum(y0, H, b), aux)
 
     eye6 = torch.eye(6, dtype=f32, device=dev)
 
@@ -271,10 +346,10 @@ def align(
         done = accepted = conv = False
         j = 0
         while j < s.lm_max_iterations and not done:
-            d = solve6_ldlt(H + lam * eye6, -b)
-            delta = se3.se3_exp(d)
-            xi = se3.compose(delta, x)
-            yi = _compute_error(xi, src_pts, aux)
+            d = solve6_ldlt(H + lam * eye6, -b, ar.sub)
+            delta = ar.se3_exp(d)
+            xi = ar.compose(delta, x)
+            (yi,) = allsum(_compute_error(xi, src_pts, aux, ar))
             # d^T (H + lam I) d >= 0; guard exact convergence d = 0 (0/0)
             denom = torch.clamp_min(torch.dot(d, lam * d - b), 1e-30)
             rho = (y0 - yi) / denom
@@ -310,11 +385,11 @@ def align(
         # gate): stop with the pose unchanged
         degenerate = bool(hmax < 1e-12)  # host sync
         if s.optimizer == "gn":
-            d = solve6_ldlt(H + 1e-12 * eye6, -b)
+            d = solve6_ldlt(H + 1e-12 * eye6, -b, ar.sub)
             if degenerate:
                 d = torch.zeros_like(d)
-            delta = se3.se3_exp(d)
-            x_new = se3.compose(delta, x0)
+            delta = ar.se3_exp(d)
+            x_new = ar.compose(delta, x0)
             converged = degenerate or bool(_is_converged(delta, s))
             y_st, H_st = y0, H
         elif degenerate:
@@ -351,12 +426,12 @@ def align(
             * src_mask
         )
         corr = torch.where(valid, idx, -1).to(torch.int32)
-        num_inliers = valid.sum(dtype=torch.int32)
+        (num_inliers,) = allsum(valid.sum(dtype=torch.int32))
     else:
         y_fin, H_fin = y_st, H_st
         residuals = torch.zeros(src_pts.shape[0], dtype=f32, device=dev)
         corr = torch.full((src_pts.shape[0],), -1, dtype=torch.int32, device=dev)
-        num_inliers = src_mask.sum(dtype=torch.int32)
+        (num_inliers,) = allsum(src_mask.sum(dtype=torch.int32))
     if s.record_trace:
         pose_trace = torch.stack(
             trace + [x0] * (s.max_iterations - len(trace))
@@ -385,10 +460,13 @@ def align_batch(
     tgt_covs: torch.Tensor,
     guess: torch.Tensor,
     settings: GICPSettings = GICPSettings(),
+    axis_name: torch.distributed.ProcessGroup | None = None,
 ) -> GICPResult:
     """B independent :func:`align` calls over a leading batch axis (the
     JAX package's ``jax.vmap(gicp.align)``): ``src_pts`` (B, N, 3) ...
     ``guess`` (B, 4, 4); every field of the result has a leading B.
+    ``axis_name`` sums every stream's normal equations, errors and
+    inliers over a point-sharded process group, as in :func:`align`.
 
     A vmapped ``while_loop`` runs its body for every stream while any
     stream's predicate holds and keeps each finished stream's carry: so
@@ -399,8 +477,10 @@ def align_batch(
     :func:`align` gives it. Every linearization is one batched pass; with
     ``nn_impl="sparse"`` on the card its correspondences are one launch of
     the batched sparse 1-NN kernel for all streams."""
+    allsum = _allsum_fn(axis_name)
     s = settings
     Bn, dev, f32 = src_pts.shape[0], src_pts.device, torch.float32
+    ar = arithmetic(dev)
     tgt_q = torch.where(tgt_mask[..., None], tgt_pts, SENTINEL)
     sparse_prep = None
     if device.on_accelerator(tgt_pts) and s.nn_impl == "sparse":
@@ -408,11 +488,12 @@ def align_batch(
     tgt_feat = torch.cat([tgt_q, tgt_covs.flatten(-2)], dim=-1)
 
     def lin(T, nn_impl=s.nn_impl, prune_dilation=1.0):
-        return _linearize(
+        y0, H, b, aux = _linearize(
             T, src_pts, src_mask, src_covs, tgt_q, tgt_mask, tgt_covs,
             s.max_correspondence_distance, nn_impl, prune_dilation,
-            sparse_prep=sparse_prep, tgt_feat=tgt_feat,
+            sparse_prep=sparse_prep, tgt_feat=tgt_feat, ar=ar,
         )
+        return (*allsum(y0, H, b), aux)
 
     def sel(m, a, b):
         return torch.where(m.reshape(m.shape + (1,) * (a.dim() - m.dim())), a, b)
@@ -430,10 +511,10 @@ def align_batch(
         j = 0
         act = run
         while j < s.lm_max_iterations and bool(act.any()):  # host sync
-            d = solve6_ldlt(H + lam[:, None, None] * eye6, -b)
-            delta = se3.se3_exp(d)
-            xi = se3.compose(delta, x)
-            yi = _compute_error(xi, src_pts, aux)
+            d = solve6_ldlt(H + lam[:, None, None] * eye6, -b, ar.sub)
+            delta = ar.se3_exp(d)
+            xi = ar.compose(delta, x)
+            (yi,) = allsum(_compute_error(xi, src_pts, aux, ar))
             g = lam[:, None] * d - b
             denom = torch.clamp_min(torch.stack([torch.dot(x, y) for x, y in zip(d, g)]), 1e-30)
             rho = (y0 - yi) / denom
@@ -469,10 +550,10 @@ def align_batch(
         lam = torch.where(lm_lambda < 0, s.lm_init_lambda_factor * hmax, lm_lambda)
         degenerate = hmax < 1e-12
         if s.optimizer == "gn":
-            d = solve6_ldlt(H + 1e-12 * eye6, -b)
+            d = solve6_ldlt(H + 1e-12 * eye6, -b, ar.sub)
             d = sel(degenerate, torch.zeros_like(d), d)
-            delta = se3.se3_exp(d)
-            x_new = se3.compose(delta, x0)
+            delta = ar.se3_exp(d)
+            x_new = ar.compose(delta, x0)
             conv_new = degenerate | _is_converged(delta, s)
             failed_new = false
             H_new = H
@@ -505,12 +586,12 @@ def align_batch(
         idx, valid, _, _, sqd = aux
         residuals = torch.clamp_max(torch.sqrt(torch.clamp_min(sqd, 0.0)), res_cap) * src_mask
         corr = torch.where(valid, idx, -1).to(torch.int32)
-        num_inliers = valid.sum(dim=-1, dtype=torch.int32)
+        (num_inliers,) = allsum(valid.sum(dim=-1, dtype=torch.int32))
     else:
         y_fin, H_fin = y_st, H_st
         residuals = torch.zeros(src_pts.shape[:2], dtype=f32, device=dev)
         corr = torch.full(src_pts.shape[:2], -1, dtype=torch.int32, device=dev)
-        num_inliers = src_mask.sum(dim=-1, dtype=torch.int32)
+        (num_inliers,) = allsum(src_mask.sum(dim=-1, dtype=torch.int32))
     if s.record_trace:
         # a stream's k-th pose is the k-th pass's; rows past its count
         # repeat its final pose, as align's do

@@ -79,7 +79,7 @@ def step(
     raw_mask,
     timestamp,
     hull_masks: Tuple[torch.Tensor, torch.Tensor] | None = None,
-    axis_name: str | None = None,
+    axis_name: torch.distributed.ProcessGroup | None = None,
     pt_size: int = 1,
 ) -> Tuple[DDLOState, DDLOOutputs]:
     """One DDLO transition. ``raw_points`` (H*W, 3) may carry NaN in

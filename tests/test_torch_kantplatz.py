@@ -4,15 +4,22 @@ port, against the JAX package on the same scans: tests/test_kantplatz.py's
 ``small_kantplatz()`` scene, 3 steps.
 
 - Free-running, the port holds test_kantplatz.py's own bars (a finite
-  pose, norm below 2 m, labels -1 outside the window), and its labels,
-  residual images and keyframe flags equal JAX's on every scan.
-- Scan by scan, one port step from the JAX state lands within 1e-3 m
-  (and 1e-3 rad) of the JAX step. The PLANE covariances are bit-equal to
-  XLA's (tests/test_torch_golden_rounding.py); what is left is GICP's
-  own arithmetic (1.7e-6 m at scan 1, 8e-5 m at scan 2), which the
-  scene's unobservable z (a sensor at ground level, JAX itself at
-  z = -0.72 m where the truth is 0) amplifies when the runs are chained:
-  2.3e-3 m at scan 2 and 1.6e-2 m at scan 3 (ROADMAP queue 3).
+  pose, norm below 2 m, labels -1 outside the window), its labels,
+  residual images and keyframe flags equal JAX's on every scan, and its
+  poses are within 1e-6 of JAX's.
+- Scan by scan, one port step from the JAX state lands within 1e-6 of
+  the JAX step's pose. The PLANE covariances are XLA's bits
+  (tests/test_torch_golden_rounding.py), and so are GICP's arithmetic on
+  the host (ops/gicp_xla.py, tests/test_torch_gicp_bits.py) and the point
+  transforms (core/se3.py). Measured on an 8-core Xeon: 0, free-running
+  and scan by scan (tools/torch_jax_gaps.py). Before that the lockstep
+  steps were 1.7e-6, 8.0e-5 and 5.4e-6 m off, and the scene's
+  unobservable z (a sensor at ground level, JAX itself at z = -0.72 m
+  where the truth is 0) amplified them to 2.3e-3 m at scan 2 and
+  1.6e-2 m at scan 3 when chained.
+- Scan by scan with the card's GICP arithmetic (``gicp.TORCH``, matrix
+  products) run on the host: within 1e-3 m and 1e-3 rad of the JAX step,
+  the bar the port held before the host took XLA's order.
 """
 
 import jax
@@ -26,6 +33,7 @@ from torch_parity import n, port_cfg, rot_err
 from dynamic_direct_lidar_odometry_tpu import pipeline as jpipe
 from dynamic_direct_lidar_odometry_tpu.io import synthetic
 from dynamic_direct_lidar_odometry_tpu_torch import interop, pipeline
+from dynamic_direct_lidar_odometry_tpu_torch.ops import gicp
 
 
 @pytest.fixture(scope="module")
@@ -66,6 +74,7 @@ def test_port_runs_the_kantplatz_square_image(kant_run):
     for i in range(1, 4):
         st, out = pipeline.step(pcfg, st, *scans[i], 0.1 * i)
         _same_perception(out, j_outs[i - 1])
+        np.testing.assert_allclose(n(out.odom.T), np.asarray(j_outs[i - 1].odom.T), rtol=0, atol=1e-6)
     p = n(out.odom.pose)
     assert np.all(np.isfinite(p)) and float(np.linalg.norm(p)) < 2.0
     lab = n(out.detections.labels)
@@ -75,6 +84,17 @@ def test_port_runs_the_kantplatz_square_image(kant_run):
 
 @pytest.mark.parametrize("scan", [1, 2, 3])
 def test_port_step_from_the_jax_state_matches_jax_on_kantplatz(kant_run, scan):
+    cfg, scans, before, j_outs = kant_run
+    st = interop.state_from_numpy(before[scan - 1], "cpu")
+    _, po = pipeline.step(port_cfg(cfg), st, *scans[scan], 0.1 * scan)
+    jo = j_outs[scan - 1]
+    np.testing.assert_allclose(n(po.odom.T), np.asarray(jo.odom.T), rtol=0, atol=1e-6)
+    _same_perception(po, jo)
+
+
+@pytest.mark.parametrize("scan", [1, 2, 3])
+def test_card_arithmetic_step_from_the_jax_state_on_kantplatz(kant_run, scan, monkeypatch):
+    monkeypatch.setattr(gicp, "arithmetic", lambda dev: gicp.TORCH)
     cfg, scans, before, j_outs = kant_run
     st = interop.state_from_numpy(before[scan - 1], "cpu")
     _, po = pipeline.step(port_cfg(cfg), st, *scans[scan], 0.1 * scan)

@@ -3,8 +3,10 @@ host) and never import the JAX package: in a subprocess with ``jax`` and
 ``dynamic_direct_lidar_odometry_tpu`` (and their submodules) blocked,
 import them and run one tiny full-DDLO step on the CPU through
 chip_smoke's own helper, two scans of ``runner.replay``, the CLI's
-``synth``, ``parallel.replay.replay_batch`` (2 streams, 2 scans) and
-``pipeline.step_chunk``; and a static scan of their imports."""
+``synth``, ``parallel.replay.replay_batch`` (2 streams, 2 scans),
+``pipeline.step_chunk``, a binary ``io.pcd.save_pcd`` through
+``io.native`` and ``point_parallel_pipeline_step`` in a world of one
+``parallel.distributed`` rank; and a static scan of their imports."""
 
 import os
 import re
@@ -85,6 +87,29 @@ assert rb.poses.shape == (2, 1, 3) and np.allclose(rb.poses[0], rb.poses[1]), rb
 st = pipeline.init_state(cfg, scans[0][0], scans[0][1], 0.0, device="cpu")
 st, outs = pipeline.step_chunk(cfg, st, pts2[0][1:], msk2[0][1:], torch.tensor([0.1]))
 assert outs.odom.pose.shape == (1, 3) and np.allclose(outs.odom.pose[0].numpy(), rb.poses[0, 0])
+import socket
+
+import torch.distributed as dist
+
+from dynamic_direct_lidar_odometry_tpu_torch.core import tree
+from dynamic_direct_lidar_odometry_tpu_torch.io import native, pcd
+from dynamic_direct_lidar_odometry_tpu_torch.parallel import distributed
+
+assert native.available()
+with tempfile.TemporaryDirectory() as d:
+    assert pcd.save_pcd(os.path.join(d, "a.pcd"), pts2[0, 0], msk2[0, 0]) == int(msk2[0, 0].sum())
+with socket.socket() as s:
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+distributed.initialize(f"127.0.0.1:{port}", 1, 0)
+mesh = sharding.make_mesh(1, devices=["cpu"])
+step = sharding.point_parallel_pipeline_step(cfg, mesh)
+st1 = tree.stack([pipeline.init_state(cfg, scans[0][0], scans[0][1], 0.0, device="cpu")])
+_, pp = step(st1, pts2[:1, 1], msk2[:1, 1], np.array([0.1], np.float32))
+assert np.allclose(pp.odom.pose[0].numpy(), rb.poses[0, 0]), (pp.odom.pose, rb.poses[0, 0])
+(total,) = distributed.allsum([torch.ones(3)], dist.group.WORLD)
+assert total.tolist() == [1.0, 1.0, 1.0]
+dist.destroy_process_group()
 bad = [m for m in sys.modules if m.split(".")[0] in BLOCKED and sys.modules[m] is not None]
 assert not bad, bad
 print("NO_JAX_OK")

@@ -121,7 +121,9 @@ def test_state_bridge_round_trip_and_one_step(plain_run):
 
 def test_dynamic_detection_and_sharding_raise(plain_run):
     """Dynamic detection is ported (init_state accepts it and returns an
-    empty tracker); point-parallel sharding still raises."""
+    empty tracker); point-parallel sharding raises when it is given a mesh
+    axis name, not the mesh's process group (tests/test_torch_point_parallel.py
+    runs it)."""
     import dataclasses
 
     cfg, scans, j_states, _ = plain_run
@@ -129,7 +131,7 @@ def test_dynamic_detection_and_sharding_raise(plain_run):
     st = pipeline.init_state(dyn, scans[0][0], scans[0][1], device="cpu")
     assert not bool(st.tracks.active.any())
     state = interop.state_from_numpy(jax.tree.map(np.asarray, j_states[0]), "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="pt process group"):
         pipeline.step(port_cfg(cfg), state, scans[1][0], scans[1][1], 0.1, axis_name="pt", pt_size=2)
 
 

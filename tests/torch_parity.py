@@ -167,3 +167,37 @@ def assert_ddlo_parity(j_out, p_out, j_state, p_state):
                                np.asarray(j_out.detections.objects.state), atol=1e-3)
     np.testing.assert_array_equal(n(p_state.tracks.active), np.asarray(j_state.tracks.active))
     np.testing.assert_array_equal(n(p_state.tracks.status), np.asarray(j_state.tracks.status))
+
+
+def spawn_ranks(mode, nproc, out, inputs=None, timeout=240):
+    """Run tests/torch_dist_worker.py as ``nproc`` gloo ranks on a free
+    local port, each under ``timeout`` seconds (all are killed when one
+    runs over); returns the ranks' ``np.load``-ed outputs in rank order.
+    The workers get the repo alone on ``PYTHONPATH`` and import no JAX."""
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=root, OMP_NUM_THREADS="1")
+    cmd = [sys.executable, os.path.join(root, "tests", "torch_dist_worker.py"),
+           "--mode", mode, "--coordinator", f"127.0.0.1:{port}", "--nproc", str(nproc),
+           "--out", str(out)] + (["--inputs", str(inputs)] if inputs else [])
+    procs = [subprocess.Popen(cmd + ["--pid", str(r)], env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for r in range(nproc)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        assert p.returncode == 0, f"rank {r} failed:\n{log[-3000:]}"
+    return [np.load(f"{out}.{r}.npz") for r in range(nproc)]
