@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                 # every phase (the check)
     python3 chip_smoke.py --phases 1,2,3  # a subset, e.g. after a kernel edit
+    python3 chip_smoke.py --accuracy-out ACCURACY_torch.json  # also write phase 16's report
 
 Phases, in order; any failure exits non-zero and prints no result:
 
@@ -126,6 +127,27 @@ Phases, in order; any failure exits non-zero and prints no result:
    scan and per registration, and the agreement check alone; two ranks
    share one card, so they say nothing of multi-card scaling.
 
+16. The accuracy tool (``tools/torch_accuracy.py``): its four card legs,
+   ``runner.replay(bench_config(), ...)`` over all 64 scans of phase 4's
+   sequence (checked against both accuracy goldens' checksums):
+   ``gpu_default``, ``gpu_exact`` (``DDLO_NN_IMPL=exact``,
+   ``DDLO_KNN_IMPL=exact``), ``gpu_exact_hulls`` (host hulls) and
+   ``gpu_laneclass`` (``DDLO_KNN_IMPL=pallas``). Pass: the JAX tool's bars
+   (default vs exact and device vs exact hulls < 10 mm stamp-aligned RMSE,
+   every leg < 5 cm ATE), ``gpu_default`` within 10 mm (max divergence) of
+   the JAX CPU run with window covariances
+   (``tests/golden/torch_port_accuracy64_jaxcpu_window.npz``) and
+   ``gpu_exact`` of the exact one (``..._jaxcpu_exact.npz``), the lane-class
+   leg held to the same bars against ``gpu_exact`` and the exact golden;
+   each leg's launches show its path (``nn1_sparse`` for every
+   linearization and residual pass, ``knn_classes`` for every covariance
+   call of the lane-class leg and never elsewhere, no kernel in
+   ``gpu_exact``). The report is one ``accuracy`` JSON line
+   (``--accuracy-out`` also writes it to a file).
+
+Each phase prints the wall time at which it starts (``at T s: phase N``)
+and a full run its total (``wall: T s``).
+
 Phase 3 also holds the lane-class kernel with half the queries (each
 half of the 16,384-row cloud against all of it, as phase 15's ranks call
 it), the batched sparse entry (``nn1_sparse_batched``, 8 stacked S2M
@@ -134,9 +156,9 @@ plain version and to 8 single calls, every row, and
 ``covariance.regularize_plane`` on the card to the host's bits.
 
 The line before the last is the kernel table as JSON (``nn1_sparse``'s
-launches summed over phases 4, 5, 9, 10, 11, 12, 14 and 15;
+launches summed over phases 4, 5, 9, 10, 11, 12, 14, 15 and 16;
 ``nn1_sparse_batched``'s from phases 13 and 15; ``knn_classes``' from
-phases 7 and 15, phase 15's summed over both ranks); the last line is
+phases 7, 15 and 16, phase 15's summed over both ranks); the last line is
 ``{"ok": true, "device": {...}}`` (full runs only).
 """
 
@@ -1405,13 +1427,43 @@ def point_parallel_phase(problems, seq, ref, card):
     return total
 
 
+def accuracy_phase(seq, card, out_path=None):
+    """Phase 16: the accuracy tool's four card legs over all 64 scans.
+    Returns the kernels' launches summed over the legs."""
+    import importlib.util
+
+    from dynamic_direct_lidar_odometry_tpu_torch import config
+    from dynamic_direct_lidar_odometry_tpu_torch.utils import sequence
+
+    spec = importlib.util.spec_from_file_location("torch_accuracy", os.path.join(ROOT, "tools", "torch_accuracy.py"))
+    acc = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(acc)
+    goldens = acc.load_goldens()
+    digest = sequence.sequence_sha256(seq, len(seq))
+    for name, g in goldens.items():
+        check(int(g["n_scans"]) == len(seq) and str(g["scans_sha256"]) == digest,
+              f"the {len(seq)} scans differ from {name}'s sequence (sha256 {digest})")
+    cfg = config.bench_config()
+    legs = {name: acc.run_leg(name, cfg, seq) for name in acc.CARD_LEGS}
+    rep = acc.report(legs, goldens, card, len(seq))
+    print("accuracy " + json.dumps(rep), flush=True)
+    if out_path:
+        with open(out_path, "w") as f:
+            json.dump(rep, f, indent=1)
+    check(not rep["gates_not_run"], f"accuracy gates not run: {rep['gates_not_run']}")
+    check(rep["pass"], f"accuracy gates failed: {[g for g in rep['gates'] if not g['ok']]}")
+    return {k: sum(v["launches"].get(k, 0) for v in legs.values()) for k in ("nn1_sparse", "knn_classes")}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Smoke check of the PyTorch port on one GPU")
-    ap.add_argument("--phases", default=",".join(str(p) for p in range(1, 16)),
+    ap.add_argument("--phases", default=",".join(str(p) for p in range(1, 17)),
                     help="comma-separated subset; the check is the full run")
+    ap.add_argument("--accuracy-out", default=None, help="also write phase 16's report to this file")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
-    full = phases == set(range(1, 16))
+    full = phases == set(range(1, 17))
+    t_start = time.perf_counter()
 
     import torch
 
@@ -1436,6 +1488,7 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
 
     # ---- 2. build ----
+    print(f"at {time.perf_counter() - t_start:.1f} s: phase 2", flush=True)
     t0 = time.perf_counter()
     built = nn_cuda.build()
     print(f"build: {len(built)} libraries in {time.perf_counter() - t0:.2f} s", flush=True)
@@ -1458,7 +1511,7 @@ def main(argv=None) -> int:
     cfg_dlo = config.bench_config(dynamic_detection=False)
     cfg = config.bench_config()
     seq = None
-    if phases & (set(range(3, 16)) - {11}):
+    if phases & (set(range(3, 17)) - {11}):
         t0 = time.perf_counter()
         seq = sequence.steady_state_sequence(64)
         print(f"sequence: 64 scans {seq.H}x{seq.W} in {time.perf_counter() - t0:.1f} s (host)", flush=True)
@@ -1471,6 +1524,7 @@ def main(argv=None) -> int:
               f"scans 0-{m - 1} differ from the CLI reference sequence")
 
     # ---- 3. kernels vs their plain versions ----
+    print(f"at {time.perf_counter() - t_start:.1f} s: phase 3", flush=True)
     records = {}
     if 3 in phases:
         query, s2s_t, s2m_t, odd_q, odd_t = kernel_inputs(cfg_dlo, seq, ref_dlo["poses"], dev)
@@ -1525,6 +1579,7 @@ def main(argv=None) -> int:
     sparse_launches = {}  # nn1_sparse per phase that runs it, each read right after it
     if 4 in phases:
         # ---- 4. plain DLO ----
+        print(f"at {time.perf_counter() - t_start:.1f} s: phase 4", flush=True)
         nn_cuda.LAUNCHES.clear()
         poses, steps = run_slice(cfg_dlo, seq.points[:n], seq.mask[:n], seq.stamps[:n], dev, timed=True)
         got = dict(nn_cuda.LAUNCHES)
@@ -1540,6 +1595,7 @@ def main(argv=None) -> int:
     s2m = []
     if phases & {5, 6, 13, 15}:
         # ---- 5. full DDLO, default backends ----
+        print(f"at {time.perf_counter() - t_start:.1f} s: phase 5", flush=True)
         nn_cuda.LAUNCHES.clear()
         segmentation.SWEEPS.clear()
         hungarian.HOST_READS.clear()
@@ -1570,10 +1626,12 @@ def main(argv=None) -> int:
 
     if 6 in phases:
         # ---- 6. detection + tracking, card vs host ----
+        print(f"at {time.perf_counter() - t_start:.1f} s: phase 6", flush=True)
         compare_detection(inputs, cfg)
 
     if 7 in phases:
         # ---- 7. full DDLO, dense backends ----
+        print(f"at {time.perf_counter() - t_start:.1f} s: phase 7", flush=True)
         with env(DDLO_NN_IMPL="pallas", DDLO_KNN_IMPL="pallas"):
             nn_cuda.LAUNCHES.clear()
             m = DENSE_SCANS
@@ -1593,6 +1651,7 @@ def main(argv=None) -> int:
 
     if 8 in phases:
         # ---- 8. the pruned k-NN entry point ----
+        print(f"at {time.perf_counter() - t_start:.1f} s: phase 8", flush=True)
         nn_cuda.LAUNCHES.clear()
         k = cfg.gicp.s2s.k_correspondences
         for i in range(DENSE_SCANS):
@@ -1608,37 +1667,52 @@ def main(argv=None) -> int:
 
     if 9 in phases:
         # ---- 9. the replay loop ----
+        print(f"at {time.perf_counter() - t_start:.1f} s: phase 9", flush=True)
         sparse_launches[9] = replay_phase(cfg, seq, ref_replay, card)
 
     if 10 in phases:
         # ---- 10. the CLI at its own capacity (blocked hulls) ----
+        print(f"at {time.perf_counter() - t_start:.1f} s: phase 10", flush=True)
         sparse_launches[10] = cli_phase(seq, ref_cli, card)
 
     if 11 in phases:
         # ---- 11. kantplatz at 512 x 512 ----
+        print(f"at {time.perf_counter() - t_start:.1f} s: phase 11", flush=True)
         sparse_launches[11] = kantplatz_phase(card)
 
     if 12 in phases:
         # ---- 12. step_chunk ----
+        print(f"at {time.perf_counter() - t_start:.1f} s: phase 12", flush=True)
         sparse_launches[12] = chunk_phase(cfg, seq, dev)
 
     problems = align_problems(s2m) if phases & {13, 15} else None
     if 13 in phases:
         # ---- 13. batched_align: one batched sparse launch per linearization ----
+        print(f"at {time.perf_counter() - t_start:.1f} s: phase 13", flush=True)
         launches["nn1_sparse_batched"] = batched_align_phase(problems, card)
 
     if 14 in phases:
         # ---- 14. replay_batch ----
+        print(f"at {time.perf_counter() - t_start:.1f} s: phase 14", flush=True)
         sparse_launches[14] = replay_batch_phase(cfg, seq, card)
 
     if 15 in phases:
         # ---- 15. point-parallel alignment and pipeline, PT ranks ----
+        print(f"at {time.perf_counter() - t_start:.1f} s: phase 15", flush=True)
         pt_launches = point_parallel_phase(problems, seq, ref_ddlo, card)
         sparse_launches[15] = pt_launches.get("nn1_sparse", 0)
         for name in ("nn1_sparse_batched", "knn_classes"):
             launches[name] = launches.get(name, 0) + pt_launches.get(name, 0)
+
+    if 16 in phases:
+        # ---- 16. the accuracy tool's card legs, 64 scans ----
+        print(f"at {time.perf_counter() - t_start:.1f} s: phase 16", flush=True)
+        acc_launches = accuracy_phase(seq, card, args.accuracy_out)
+        sparse_launches[16] = acc_launches["nn1_sparse"]
+        launches["knn_classes"] = launches.get("knn_classes", 0) + acc_launches["knn_classes"]
     launches["nn1_sparse"] = sum(sparse_launches.values())
     print(f"nn1_sparse launches by phase: {json.dumps(sparse_launches)}", flush=True)
+    print(f"wall: {time.perf_counter() - t_start:.1f} s", flush=True)
 
     if not full:
         print(f"chip_smoke: phases {sorted(phases)} passed (partial run, no result)")

@@ -66,30 +66,35 @@ def quat_to_matrix(q: torch.Tensor) -> torch.Tensor:
 
 def matrix_to_quat(R: torch.Tensor) -> torch.Tensor:
     """Rotation matrix (..., 3, 3) -> unit quaternion [w,x,y,z] by the
-    branch-free Shepperd's method of the JAX package."""
+    branch-free Shepperd's method of the JAX package, rounded as its jitted
+    CPU code: roots and quotients correctly rounded (through f64), the
+    norm's sum of squares an FMA chain."""
     m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
     m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
     m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
     tr = m00 + m11 + m22
 
     def _safe_sqrt(x):
-        return torch.sqrt(torch.clamp_min(x, _EPS))
+        return torch.sqrt(torch.clamp_min(x, _EPS).double()).float()
+
+    def _div(a, b):
+        return (a.double() / b.double()).float()
 
     s0 = _safe_sqrt(1.0 + tr) * 2.0
     q0 = torch.stack(
-        [0.25 * s0, (m21 - m12) / s0, (m02 - m20) / s0, (m10 - m01) / s0], dim=-1
+        [0.25 * s0, _div(m21 - m12, s0), _div(m02 - m20, s0), _div(m10 - m01, s0)], dim=-1
     )
     s1 = _safe_sqrt(1.0 + m00 - m11 - m22) * 2.0
     q1 = torch.stack(
-        [(m21 - m12) / s1, 0.25 * s1, (m01 + m10) / s1, (m02 + m20) / s1], dim=-1
+        [_div(m21 - m12, s1), 0.25 * s1, _div(m01 + m10, s1), _div(m02 + m20, s1)], dim=-1
     )
     s2 = _safe_sqrt(1.0 - m00 + m11 - m22) * 2.0
     q2 = torch.stack(
-        [(m02 - m20) / s2, (m01 + m10) / s2, 0.25 * s2, (m12 + m21) / s2], dim=-1
+        [_div(m02 - m20, s2), _div(m01 + m10, s2), 0.25 * s2, _div(m12 + m21, s2)], dim=-1
     )
     s3 = _safe_sqrt(1.0 - m00 - m11 + m22) * 2.0
     q3 = torch.stack(
-        [(m10 - m01) / s3, (m02 + m20) / s3, (m12 + m21) / s3, 0.25 * s3], dim=-1
+        [_div(m10 - m01, s3), _div(m02 + m20, s3), _div(m12 + m21, s3), 0.25 * s3], dim=-1
     )
 
     cands = torch.stack([q0, q1, q2, q3], dim=-2)  # (..., 4, 4)
@@ -100,7 +105,11 @@ def matrix_to_quat(R: torch.Tensor) -> torch.Tensor:
     q = torch.take_along_dim(
         cands, idx[..., None, None].expand(*idx.shape, 1, 4), dim=-2
     )[..., 0, :]
-    return q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)
+    q64 = q.double()
+    sq = (q64[..., 0] * q64[..., 0]).float()
+    for c in (1, 2, 3):
+        sq = torch.addcmul(sq.double(), q64[..., c], q64[..., c]).float()
+    return _div(q, torch.sqrt(sq.double()).float()[..., None])
 
 
 def quat_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

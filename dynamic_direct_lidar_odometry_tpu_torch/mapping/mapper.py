@@ -64,7 +64,7 @@ def add_keyframe(
     if leaf_capacity is None:
         leaf_capacity = kf_points.shape[0]
     if use_voxel_filter:
-        pts, msk = filters.voxel_downsample(kf_points, kf_mask, leaf_size, leaf_capacity)
+        pts, msk = filters.voxel_downsample(kf_points, kf_mask, leaf_size, leaf_capacity, traced=True)
     else:
         pts, msk = filters.compact(kf_points, kf_mask, leaf_capacity)
 
@@ -128,7 +128,7 @@ def snapshot(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Voxel-filtered copy of the map for publishing and saving
     (publishTimerCB map.cc:83-99; savePcd's filter map.cc:165-176)."""
-    return filters.voxel_downsample(state.points, state.mask, leaf_size, capacity)
+    return filters.voxel_downsample(state.points, state.mask, leaf_size, capacity, traced=True)
 
 
 def num_points(state: MapState) -> torch.Tensor:

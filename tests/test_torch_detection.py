@@ -281,6 +281,35 @@ def test_obb_iou_matrix_gated_matches_jax(budget):
     np.testing.assert_allclose(p, j, atol=1e-5)
 
 
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_obb_iou_matrix_matches_jax(seed):
+    """The dense (D, T) matrix against the JAX package's vmapped one, 1e-6."""
+    rng = np.random.default_rng(seed)
+    dets, trks = _random_boxes(rng, 24, 2.0), _random_boxes(rng, 20, 2.0)
+    trks[:3] = dets[:3]  # identical pairs
+    j = np.asarray(jbbox.obb_iou_matrix(jnp.asarray(dets), jnp.asarray(trks)))
+    p = n(bbox.obb_iou_matrix(t(dets), t(trks)))
+    assert p.shape == (24, 20) and (j > 0).sum() > 40
+    np.testing.assert_allclose(p, j, atol=1e-6)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_gated_iou_matrix_equals_dense(seed):
+    """The port's gated matrix equals its dense one on valid pairs and is 0
+    elsewhere when the budget does not bind (tests/test_assignment.py's
+    check of the JAX pair)."""
+    rng = np.random.default_rng(seed)
+    D, T = 24, 20
+    dets, trks = _random_boxes(rng, D, 8.0), _random_boxes(rng, T, 8.0)
+    dv, tv = rng.uniform(size=D) > 0.3, rng.uniform(size=T) > 0.3
+    dense = n(bbox.obb_iou_matrix(t(dets), t(trks)))
+    gated = n(bbox.obb_iou_matrix_gated(t(dets), t(trks), t(dv), t(tv), budget=D * T))
+    valid = dv[:, None] & tv[None, :]
+    assert (dense[valid] > 0).any()
+    np.testing.assert_allclose(gated[valid], dense[valid], atol=1e-6)
+    assert np.all(gated[~valid] == 0.0)
+
+
 # ---------------------------------------------------------------------------
 # detect end to end
 # ---------------------------------------------------------------------------

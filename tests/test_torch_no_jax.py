@@ -6,7 +6,8 @@ chip_smoke's own helper, two scans of ``runner.replay``, the CLI's
 ``synth``, ``parallel.replay.replay_batch`` (2 streams, 2 scans),
 ``pipeline.step_chunk``, a binary ``io.pcd.save_pcd`` through
 ``io.native`` and ``point_parallel_pipeline_step`` in a world of one
-``parallel.distributed`` rank; and a static scan of their imports."""
+``parallel.distributed`` rank, and load ``tools/torch_accuracy.py``; and a
+static scan of their imports (that tool's too)."""
 
 import os
 import re
@@ -74,6 +75,13 @@ with tempfile.TemporaryDirectory() as d:
     path = os.path.join(d, "s.npz")
     assert cli.main(["synth", "--scans", "2", "--rows", "8", "--cols", "64", "--out", path]) == 0
     assert len(dataset.ScanSequence.load(path)) == 2
+import importlib.util
+
+spec = importlib.util.spec_from_file_location("torch_accuracy", os.path.join("tools", "torch_accuracy.py"))
+accuracy = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(accuracy)
+run = dict(poses=res.poses, stamps=res.stamps, dropped=res.dropped_scans)
+assert accuracy.pairwise_ate(run, run) == 0.0 == accuracy.max_divergence(run, run)
 import torch
 
 from dynamic_direct_lidar_odometry_tpu_torch import pipeline
@@ -132,7 +140,7 @@ def test_port_sources_never_import_jax():
     pkg_pat = re.compile(
         r"^\s*(import|from)\s+dynamic_direct_lidar_odometry_tpu(?!_torch)\b", re.M
     )
-    files = [os.path.join(ROOT, "chip_smoke.py")]
+    files = [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "tools", "torch_accuracy.py")]
     for d, _, names in os.walk(os.path.join(ROOT, "dynamic_direct_lidar_odometry_tpu_torch")):
         files += [os.path.join(d, f) for f in names if f.endswith(".py")]
     assert len(files) > 20

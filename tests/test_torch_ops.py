@@ -10,6 +10,7 @@ test (the PLANE normal's own conditioning and the window path's f32
 cancellation set the bars).
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -60,6 +61,18 @@ def test_se3_matches_jax(name):
     np.testing.assert_allclose(got, want, atol=atol, rtol=0)
 
 
+def test_matrix_to_quat_bits_match_jax():
+    """The pose's quaternion (the replay's output and the keyframe test's
+    input) rounds as the jitted JAX function: bit for bit, every branch
+    of Shepperd's method."""
+    rng = np.random.default_rng(3)
+    q = rng.normal(size=(20000, 4))
+    q[:2000, 1:] *= 1e-3  # near the identity
+    q[2000:4000, 0] *= 1e-3  # near a half turn
+    R = np.asarray(jse3.quat_to_matrix(jnp.asarray((q / np.linalg.norm(q, axis=1, keepdims=True)).astype(np.float32))))
+    np.testing.assert_array_equal(n(se3.matrix_to_quat(t(R))), np.asarray(jse3.matrix_to_quat(jnp.asarray(R))))
+
+
 def _cloud(seed, N=16384, nan_invalid=True):
     """A 32x512-scale cloud: walls, ground and scattered points, ~20 %
     invalid (NaN there, like raw scans)."""
@@ -84,6 +97,35 @@ def test_voxel_downsample_matches_jax(res, capacity):
     np.testing.assert_array_equal(n(tm), np.asarray(jm))
     # row order equal: centroids agree row by row up to summation order
     np.testing.assert_allclose(n(tp), np.asarray(jp), atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("traced", [False, True], ids=["constant_res", "traced_res"])
+def test_voxel_binning_rounds_as_jax(traced):
+    """Coordinates where ``x / 0.3`` and ``x * (1 / 0.3)`` floor to other
+    voxels: with the resolution a compile-time constant XLA multiplies by
+    its reciprocal (the preprocess and keyframe filters), with a traced
+    one (the map node's leaf size) it divides. Bit for bit either way."""
+    rng = np.random.default_rng(9)
+    res = np.float32(0.3)
+    x = (np.arange(-130, 130) * res).astype(np.float32)  # on the voxel faces
+    x = np.concatenate([x + np.float32(u) * np.spacing(x) for u in range(-3, 4)])
+    split = np.floor(x / res) != np.floor(x * (np.float32(1) / res))
+    edge = x[split][:600]
+    assert len(edge) > 40
+    pts = rng.uniform(-40, 40, (4096, 3)).astype(np.float32)
+    pts[: len(edge), 0] = edge
+    pts[len(edge) : 2 * len(edge), 1] = edge
+    mask = rng.uniform(size=4096) > 0.1
+    if traced:
+        fn = jax.jit(lambda p, m, r: jfilters.voxel_downsample(p, m, r, 4096))
+        jp, jm = fn(jnp.asarray(pts), jnp.asarray(mask), jnp.float32(res))
+    else:
+        jp, jm = jax.jit(lambda p, m: jfilters.voxel_downsample(p, m, 0.3, 4096))(jnp.asarray(pts), jnp.asarray(mask))
+    tp, tm = filters.voxel_downsample(t(pts), t(mask), 0.3, 4096, traced=traced)
+    np.testing.assert_array_equal(n(tm), np.asarray(jm))
+    np.testing.assert_array_equal(n(tp), np.asarray(jp))
+    other, _ = filters.voxel_downsample(t(pts), t(mask), 0.3, 4096, traced=not traced)
+    assert not torch.equal(other, tp)
 
 
 @pytest.mark.parametrize("capacity", [4096, 20000])
@@ -177,6 +219,56 @@ def test_knn_matches_jax(k):
     np.testing.assert_allclose(n(td), np.asarray(jd), atol=1e-4, rtol=0)
     contained = np.arange(1, 301) % 17 != 0
     assert np.all(ti[:300, 0][contained] == np.arange(1, 301)[contained])
+
+
+def _tie_clouds(case):
+    """Clouds whose k-th neighbor is decided by the f32 expansion's
+    rounding: 40-50 m from the origin (||q||^2 ~ 2e3: the expansion's
+    rounding ~1e-4 m^2), random points ~30 cm apart (the host proves most
+    rows from its candidates) or ~5 cm apart (it ranks most rows over
+    every target), or a 2 cm lattice (exact ties in the true distance);
+    SENTINEL rows in all. The dense clouds and the lattice have rows
+    where the plain expansion picks other neighbors."""
+    rng = np.random.default_rng(11)
+    if case == "lattice":
+        g = np.stack(np.meshgrid(*[np.arange(12)] * 3, indexing="ij"), -1).reshape(-1, 3)
+        tg = (g * 0.02 + np.float32([30.0, -20.0, 2.0])).astype(np.float32)
+        q = tg[rng.permutation(len(tg))[:600]] + np.float32(0.01)
+    else:
+        half = [0.8, 0.8, 0.3] if case == "dense" else [6.0, 6.0, 2.0]
+        tg = (rng.uniform(-1, 1, (9000, 3)) * half + [40.0, 25.0, 1.0]).astype(np.float32)
+        m = 700 if case == "sparse" else 150
+        q = np.concatenate([tg[:m], tg[m:2 * m] + rng.normal(0, 0.03, (m, 3))]).astype(np.float32)
+    tg[::13] = 1.0e6
+    q[::29] = 1.0e6
+    return q, tg
+
+
+@pytest.mark.parametrize("case", ["sparse", "dense", "lattice"])
+@pytest.mark.parametrize("k", [1, 10, 20])
+def test_host_sweeps_round_as_jax(case, k, monkeypatch):
+    """On the host the exact sweeps select and return what the JAX
+    package's jitted sweeps do on the CPU, bit for bit on every row
+    (near-ties and SENTINEL rows included)."""
+    q, tg = _tie_clouds(case)
+    plain = n(knn._sweep(t(q), t(tg), k, 1024, 8192)[1])
+    redo = []
+    real = knn._select_xla
+    monkeypatch.setattr(knn, "_select_xla", lambda *a: redo.append(len(a[0])) or real(*a))
+    if k == 1:
+        want = jknn.nn1(jnp.asarray(q), jnp.asarray(tg))
+        got = knn.nn1(t(q), t(tg))
+    else:
+        want = jknn.knn(jnp.asarray(q), jnp.asarray(tg), k)
+        got = knn.knn(t(q), t(tg), k)
+    np.testing.assert_array_equal(n(got[0]), np.asarray(want[0]))
+    np.testing.assert_array_equal(n(got[1]), np.asarray(want[1]))
+    if case == "sparse":
+        assert sum(redo) < 0.05 * len(q)
+    else:  # the plain expansion picks other neighbors on some valid row
+        valid = (q < 1.0e6).all(1)
+        assert (np.sort(plain, 1) != np.sort(n(got[0]).reshape(len(q), -1), 1))[valid].any()
+        assert sum(redo) > 0
 
 
 def _voxel_scan(frame):

@@ -48,6 +48,28 @@ submap, 128 keyframes of 32,768 points, 32 objects and tracks) over
   outside_window (labelled pixels outside the segmentation window, per
   scan), ate (m), scans_sha256.
 
+With ``--accuracy`` it writes the two 64-scan trajectories the port's
+accuracy tool (``tools/torch_accuracy.py``) holds its card legs to: the
+JAX package's ``runner.replay(bench_config(), steady_state_sequence(64),
+hulls="device")``, as ``tools/accuracy_tpu.py`` replays it, under
+
+  exact:  ``DDLO_NN_IMPL=exact`` and ``DDLO_KNN_IMPL=exact`` (that tool's
+          ``cpu_exact`` leg), ``tests/golden/torch_port_accuracy64_jaxcpu_exact.npz``;
+  window: the default environment with only ``ops/covariance``'s backend
+          test answering ``"tpu"`` (the Morton-window covariances; every
+          other dispatch stays on the CPU's exact sweeps, and the sparse
+          1-NN's residual clamp is the CPU's own), which is the function the
+          port's card default computes,
+          ``tests/golden/torch_port_accuracy64_jaxcpu_window.npz``.
+
+Each holds the replay fields above plus ``dropped``, ``keyframe_added``
+(per ``pipeline.step`` call), ``seconds`` (the JAX CPU run's wall time)
+and ``ate`` aligned by stamp as the JAX tool's
+``child_main`` computes it. No Pallas kernel may run: every ``nn_pallas``
+entry point is replaced by one that raises for the run. ``--accuracy``
+alone writes both, each in a process of its own (the backend test is read
+at trace time, and traces are cached); ``--accuracy exact|window`` one.
+
 ``chip_smoke.py`` holds the port's runs on the GPU against these (the
 GPU host has no JAX), and uses the checksum to refuse a different
 sequence.
@@ -56,6 +78,7 @@ sequence.
     env JAX_PLATFORMS=cpu python tools/torch_port_reference_poses.py --scans 16 --dynamic
     env JAX_PLATFORMS=cpu python tools/torch_port_reference_poses.py --replay [bench|cli]
     env JAX_PLATFORMS=cpu python tools/torch_port_reference_poses.py --kantplatz
+    env JAX_PLATFORMS=cpu python tools/torch_port_reference_poses.py --accuracy
 """
 
 from __future__ import annotations
@@ -74,6 +97,10 @@ DYNAMIC_OUT = os.path.join(_GOLDEN, "torch_port_ddlo_steady_jaxcpu.npz")
 REPLAY_OUT = os.path.join(_GOLDEN, "torch_port_replay_steady_jaxcpu.npz")
 CLI_OUT = os.path.join(_GOLDEN, "torch_port_cli_steady_jaxcpu.npz")
 KANTPLATZ_OUT = os.path.join(_GOLDEN, "torch_port_kantplatz512_jaxcpu.npz")
+ACCURACY_OUT = {
+    leg: os.path.join(_GOLDEN, f"torch_port_accuracy64_jaxcpu_{leg}.npz") for leg in ("exact", "window")
+}
+ACCURACY_ENV = {"exact": {"DDLO_NN_IMPL": "exact", "DDLO_KNN_IMPL": "exact"}, "window": {}}
 
 
 def _jax_sequence(seq, n):
@@ -178,6 +205,93 @@ def kantplatz_golden(out_path: str) -> None:
     print(f"wrote {out_path}: N={n} ATE={ate * 1e3:.3f} mm ({time.perf_counter() - t0:.0f} s on the CPU)")
 
 
+class _TpuBackendProxy:
+    """``jax`` for one module, except that ``default_backend()`` says "tpu"."""
+
+    def __init__(self, jax_mod):
+        self._jax = jax_mod
+
+    def __getattr__(self, name):
+        return getattr(self._jax, name)
+
+    def default_backend(self):
+        return "tpu"
+
+
+def accuracy_golden(leg: str, n: int = 64) -> None:
+    import jax
+
+    from dynamic_direct_lidar_odometry_tpu import config, runner
+    from dynamic_direct_lidar_odometry_tpu.ops import covariance, nn_pallas
+    from dynamic_direct_lidar_odometry_tpu_torch.utils import sequence
+
+    for k in ("DDLO_NN_IMPL", "DDLO_KNN_IMPL"):
+        os.environ.pop(k, None)
+    os.environ.update(ACCURACY_ENV[leg])
+    pallas_calls, window_traces = [], []
+
+    def refuse(name):
+        def call(*a, **kw):
+            pallas_calls.append(name)
+            raise RuntimeError(f"nn_pallas.{name} reached: a Pallas kernel would run in interpret mode")
+        return call
+
+    for name in ("nn1_pallas", "nn1_sparse_prepared", "nn1_sparse_pallas", "knn_approx_pallas",
+                 "prepare_sparse_target"):
+        setattr(nn_pallas, name, refuse(name))
+    if leg == "window":
+        covariance.jax = _TpuBackendProxy(jax)
+        real_window = covariance._window_self_covariances
+
+        def window(*a, **kw):
+            window_traces.append(1)
+            return real_window(*a, **kw)
+
+        covariance._window_self_covariances = window
+
+    flags = []
+    real_step = runner.pipeline.step
+
+    def step(*a, **kw):
+        state, out = real_step(*a, **kw)
+        flags.append(out.keyframe_added)
+        return state, out
+
+    seq = sequence.steady_state_sequence(64)
+    t0 = time.perf_counter()
+    runner.pipeline.step = step
+    try:
+        res = runner.replay(config.bench_config(), _jax_sequence(seq, n), hulls="device", progress=True)
+    finally:
+        runner.pipeline.step = real_step
+    seconds = time.perf_counter() - t0
+    if pallas_calls:
+        raise SystemExit(f"Pallas entry points reached: {sorted(set(pallas_calls))}")
+    if leg == "window" and not window_traces:
+        raise SystemExit("the window covariance path was never traced")
+    ate = runner.ate_rmse(res.poses, seq.gt_poses[:n], res.stamps, seq.stamps[:n])
+    path = ACCURACY_OUT[leg]
+    np.savez(
+        path,
+        poses=np.asarray(res.poses, np.float32),
+        quats=np.asarray(res.quats, np.float32),
+        stamps=np.asarray(res.stamps, np.float64),
+        n_scans=np.int32(n),
+        num_keyframes=np.int32(res.num_keyframes),
+        map_points=np.int32(res.map_points),
+        dynamic_counts=np.asarray(res.dynamic_counts, np.int32),
+        dropped=np.int32(res.dropped_scans),
+        keyframe_added=np.asarray([bool(f) for f in flags], bool),
+        ate=np.float64(ate),
+        seconds=np.float64(seconds),
+        scans_sha256=np.str_(sequence.sequence_sha256(seq, n)),
+    )
+    print(
+        f"wrote {path}: N={n} keyframes={res.num_keyframes} map_points={res.map_points} "
+        f"dropped={res.dropped_scans} ATE={ate * 1e3:.3f} mm ({seconds:.0f} s on the CPU)", flush=True,
+    )
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scans", type=int, default=16)
@@ -188,6 +302,8 @@ def main(argv=None) -> int:
     ap.add_argument("--cli-scans", type=int, default=8)
     ap.add_argument("--kantplatz", action="store_true",
                     help="kantplatz_config() at 512 x 512 over kantplatz_sequence() instead")
+    ap.add_argument("--accuracy", nargs="?", const="all", choices=("all", "exact", "window"),
+                    help="the accuracy tool's 64-scan JAX CPU trajectories instead")
     args = ap.parse_args(argv)
     out_path = args.out or (DYNAMIC_OUT if args.dynamic else DEFAULT_OUT)
 
@@ -204,6 +320,15 @@ def main(argv=None) -> int:
         return 0
     if args.kantplatz:
         kantplatz_golden(args.out or KANTPLATZ_OUT)
+        return 0
+    if args.accuracy == "all":
+        import subprocess
+
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--accuracy", leg])
+                 for leg in ("exact", "window")]
+        return max(p.wait() for p in procs)
+    if args.accuracy:
+        accuracy_golden(args.accuracy)
         return 0
 
     cfg = config.bench_config(dynamic_detection=args.dynamic)
