@@ -9,8 +9,9 @@ Phases, in order; any failure exits non-zero and prints no result:
 
 1. Device: a CUDA card is required; prints its name and power limit
    (``nvidia-smi``) and checks that TF32 is off.
-2. Build: compiles ``csrc/nn1_sparse.cu`` and ``csrc/knn_classes.cu`` with
-   nvcc for sm_90a, one nvcc each, both started together.
+2. Build: compiles ``csrc/nn1_sparse.cu``, ``csrc/knn_classes.cu``,
+   ``csrc/jv_solve.cu`` and ``csrc/plane_reg.cu`` with nvcc for sm_90a, one
+   nvcc each, all started together.
 3. Every kernel against its plain PyTorch version, on the card, at the
    main paths' shapes, with inputs built from the benchmark sequence:
    sparse 1-NN (S2M 16,384 x 65,536 at r = 2 and 6, S2S 16,384 x 16,384
@@ -32,6 +33,16 @@ Phases, in order; any failure exits non-zero and prints no result:
    included); the plain version's (CUDA events). Also printed: each
    kernel's ptxas registers and spills, and the device operations one
    1-NN call costs (``torch.profiler``).
+   The two kernels without a Pallas counterpart: ``jv_solve``
+   (``hungarian.solve``) against ``solve_plain`` on the card at N = 32, 64
+   and 128 (uniform costs, integer ties, BIG rows and columns, all BIG,
+   NaN costs; all, half, a quarter or no rows valid), and after phase 5 on
+   every tracker cost matrix that phase solved (timed on the one with the
+   most path steps); pass: identical ``col_of_row``. ``regularize_plane``
+   against ``regularize_plane_plain`` on the card and on the host, on the
+   bench scan's window covariances, collinear, denormal-sized and FMA-tie
+   rows; pass: every finite row bit-equal, one launch per call. Each
+   prints device ms, call ms, plain ms and its bound.
 4. Plain DLO (``bench_config(dynamic_detection=False)``) on the first 16
    scans of ``steady_state_sequence(64)`` (rendered afresh, checked
    against the committed checksum) through ``pipeline.init_state`` /
@@ -42,7 +53,10 @@ Phases, in order; any failure exits non-zero and prints no result:
    scans, default backends. Pass: poses within 10 mm of the JAX CPU run
    (``tests/golden/torch_port_ddlo_steady_jaxcpu.npz``), keyframe flags
    equal, every S2M converged, total valid detections within 10 % of the
-   JAX total.
+   JAX total; one ``jv_solve`` launch per ``tracker.update`` and no host
+   read of the JV solve (``hungarian.HOST_READS``), one
+   ``regularize_plane`` launch per ``plane_covariances`` call (the same
+   launch checks in phases 6, 9, 11, 15 and 16).
 6. Detection and tracking of one phase-5 scan on the card against the
    port on the host, from the same inputs. Pass: labels, pixel_slot,
    valid slots, tracker integer/bool fields equal; box states and tracker
@@ -152,14 +166,14 @@ Phase 3 also holds the lane-class kernel with half the queries (each
 half of the 16,384-row cloud against all of it, as phase 15's ranks call
 it), the batched sparse entry (``nn1_sparse_batched``, 8 stacked S2M
 problems: the submap, its ties, its long list and its sentinels) to its
-plain version and to 8 single calls, every row, and
-``covariance.regularize_plane`` on the card to the host's bits.
+plain version and to 8 single calls, every row.
 
 The line before the last is the kernel table as JSON (``nn1_sparse``'s
 launches summed over phases 4, 5, 9, 10, 11, 12, 14, 15 and 16;
 ``nn1_sparse_batched``'s from phases 13 and 15; ``knn_classes``' from
-phases 7, 15 and 16, phase 15's summed over both ranks); the last line is
-``{"ok": true, "device": {...}}`` (full runs only).
+phases 7, 15 and 16, phase 15's summed over both ranks; ``jv_solve``'s and
+``regularize_plane``'s from phases 5, 6, 9, 11, 15 and 16); the last line
+is ``{"ok": true, "device": {...}}`` (full runs only).
 """
 
 from __future__ import annotations
@@ -208,6 +222,11 @@ KERNELS = {
                         replaces="dynamic_direct_lidar_odometry_tpu/ops/nn_pallas.py:339"),
     "knn_classes_sparse": dict(source=f"{PKG}/csrc/knn_classes.cu",
                                replaces="dynamic_direct_lidar_odometry_tpu/ops/nn_pallas.py:356"),
+    # no Pallas kernel: the JAX package leaves these two to XLA
+    "jv_solve": dict(source=f"{PKG}/csrc/jv_solve.cu",
+                     replaces="dynamic_direct_lidar_odometry_tpu/ops/hungarian.py:23"),
+    "regularize_plane": dict(source=f"{PKG}/csrc/plane_reg.cu",
+                             replaces="dynamic_direct_lidar_odometry_tpu/ops/covariance.py:213"),
 }
 # the bound: FP32 work at the H100 SXM's non-tensor issue rate (67 TFLOP/s
 # counts an FMA as 2; the function rounds every operation, so none fuses:
@@ -218,6 +237,15 @@ HBM_BYTES_PER_S = 3.35e12
 # 3 sub, 3 mul, 2 add per pair on the FP32 pipe; the minimum (compare,
 # select) runs on the ALU pipe beside it and is not counted
 OPS_PER_PAIR = 8
+# FP64 at the H100 SXM's non-tensor rate (34 TFLOP/s, NVIDIA's data sheet,
+# an FMA counted as 2)
+FP64_ISSUE_PER_S = 34e12 / 2
+# IEEE operations per matrix in csrc/plane_reg.cu, counted from the code
+# (a division or root as one; the flush, the selections and the f32/f64
+# conversions are not counted; atanf's argument reduction at its longest,
+# four): f32 add/sub/mul/fma/div; f64 add/mul/div/sqrt (cosf's range
+# reduction and polynomials, 27; three roots; four quotients)
+PLANE_F32_OPS, PLANE_F64_OPS = 116, 34
 
 
 class SmokeFailure(Exception):
@@ -434,7 +462,8 @@ def stress_inputs(query, s2m_target):
 
 
 PTXAS_NAMES = {"nn1_kernelILb0": "nn1_sparse", "nn1_kernelILb1": "nn1_dense",
-               "knn_classes_kernelILb0": "knn_classes", "knn_classes_kernelILb1": "knn_classes_sparse"}
+               "knn_classes_kernelILb0": "knn_classes", "knn_classes_kernelILb1": "knn_classes_sparse",
+               "jv_solve_kernel": "jv_solve", "plane_reg_kernel": "regularize_plane"}
 
 
 def ptxas_report(log: str) -> dict:
@@ -464,7 +493,8 @@ def ptxas_report(log: str) -> dict:
 KERNEL_NAMES = {"nn1_sparse": "nn1_kernel<false>", "nn1_dense": "nn1_kernel<true>",
                 "nn1_sparse_batched": "nn1_kernel<false>",
                 "knn_classes": "knn_classes_kernel<false>",
-                "knn_classes_sparse": "knn_classes_kernel<true>"}
+                "knn_classes_sparse": "knn_classes_kernel<true>",
+                "jv_solve": "jv_solve_kernel", "regularize_plane": "plane_reg_kernel"}
 
 
 def _record(kernel, case, Q, T, err, identical, pairs, nbytes, call, plain_ms, cdist_ms, **extra):
@@ -597,15 +627,42 @@ def check_sparse_batched(name, queries, targets, radius):
     )
 
 
+def fma_tie_rows(m=4000, seed=0):
+    """Symmetric rows on which one of the chain's fused multiply-adds (the
+    first lane of the cross product c01, ``fma(a01, a12, -ftz(a02 c11))``)
+    has its product on an f32 midpoint, ``(1 + 2^-12)^2``, and a tiny
+    addend on the product's side: a double-rounded emulation misses the
+    fused result there (``tests/test_torch_plane_kernel.py``)."""
+    rng = np.random.default_rng(seed)
+    t = np.float32(1 + 2.0**-12)
+    d = rng.uniform(-3, 3, (m, 3)).astype(np.float32)
+    s = np.where(rng.random(m) < 0.5, -1, 1).astype(np.float32)
+    x = np.zeros((m, 3, 3), np.float32)
+    x[:, 0, 0], x[:, 1, 1], x[:, 2, 2] = d[:, 0], d[:, 1], d[:, 2]
+    x[:, 0, 1] = x[:, 1, 0] = s * t
+    x[:, 1, 2] = x[:, 2, 1] = t
+    x[:, 0, 2] = x[:, 2, 0] = -s * np.float32(1e-20)
+    return x
+
+
+def _rows_not_bit_equal(a, b, real):
+    """Finite-input rows whose 9 entries differ in any bit (NaN = NaN)."""
+    same = (a.view(np.int32) == b.view(np.int32)) | (np.isnan(a) & np.isnan(b))
+    return int((~same.reshape(len(a), -1).all(axis=1) & real).sum())
+
+
 def check_regularize(query, k):
-    """``covariance.regularize_plane`` on the card against the host, from
-    the same covariances (the window path's at the bench scan, plus
-    near-collinear and denormal-sized ones): every row bit-equal."""
+    """``covariance.regularize_plane`` (the kernel) against
+    ``regularize_plane_plain`` on the card and on the host, from the same
+    covariances (the window path's at the bench scan, near-collinear,
+    denormal-sized and FMA-tie ones): every finite row bit-equal, one
+    launch per call. Timed at the main path's shape (the scan's 16,384
+    window covariances)."""
     import torch
 
-    from dynamic_direct_lidar_odometry_tpu_torch.ops import covariance
+    from dynamic_direct_lidar_odometry_tpu_torch.ops import covariance, nn_cuda
 
-    raw = covariance._window_self_covariances(query, k)
+    main = covariance._window_self_covariances(query, k)
     rng = np.random.default_rng(5)
     d = rng.standard_normal((4096, 3))
     d /= np.linalg.norm(d, axis=1, keepdims=True)
@@ -614,19 +671,159 @@ def check_regularize(query, k):
     c = pts - pts.mean(1, keepdims=True)
     deg = (np.einsum("nki,nkj->nij", c, c) / 10).astype(np.float32)
     deg[:64] *= np.float32(1e-19)
-    raw = torch.cat([raw, torch.as_tensor(deg, device=raw.device)])
-    real = torch.isfinite(raw).all(dim=(1, 2)).cpu()
-    card = covariance.regularize_plane(raw).cpu()
-    host = covariance.regularize_plane(raw.cpu())
-    same = (card == host) | (card.isnan() & host.isnan())
-    off = ~same.reshape(len(raw), -1).all(dim=1) & real
-    rec = dict(rows=int(real.sum()), rows_not_bit_equal=int(off.sum()),
-               max_abs=float(torch.nan_to_num(card - host)[real].abs().max()),
-               card_ms=cuda_ms(lambda: covariance.regularize_plane(raw[: query.shape[0]]), reps=10),
-               device_ops_per_call=device_busy_ms(lambda: covariance.regularize_plane(raw[: query.shape[0]]))[1])
-    print("regularize_plane card-vs-host " + json.dumps(rec), flush=True)
-    check(rec["rows_not_bit_equal"] == 0, f"regularize_plane: {rec['rows_not_bit_equal']} rows differ card vs host")
+    raw = torch.cat([main, torch.as_tensor(deg, device=main.device),
+                     torch.as_tensor(fma_tie_rows(), device=main.device)]).contiguous()
+    real = torch.isfinite(raw).all(dim=(1, 2)).cpu().numpy()
+    before = nn_cuda.LAUNCHES["regularize_plane"]
+    kern = covariance.regularize_plane(raw)
+    torch.cuda.synchronize()
+    launched = nn_cuda.LAUNCHES["regularize_plane"] - before
+    kern = kern.cpu().numpy()
+    plain = covariance.regularize_plane_plain(raw).cpu().numpy()
+    host = covariance.regularize_plane_plain(raw.cpu()).numpy()
+    err = float(np.abs(np.nan_to_num(kern - plain))[real].max())
+    m = main.shape[0]
+    f32_ms = m * PLANE_F32_OPS / FP32_ISSUE_PER_S * 1e3
+    f64_ms = m * PLANE_F64_OPS / FP64_ISSUE_PER_S * 1e3
+    bytes_ms = m * 72 / HBM_BYTES_PER_S * 1e3
+    bound, by = max((bytes_ms, "bytes"), (max(f32_ms, f64_ms), "operations"))
+    dev = device_times(lambda: covariance.regularize_plane(main), KERNEL_NAMES["regularize_plane"])
+    call_ms = cuda_ms(lambda: covariance.regularize_plane(main))
+    timer = "profiler"
+    if dev["ms"] is None:
+        dev["ms"], timer = call_ms, "events"
+    rec = dict(
+        kernel="regularize_plane", case="bench_window_16384", rows=int(real.sum()), M=m,
+        rows_not_bit_equal_card_plain=_rows_not_bit_equal(kern, plain, real),
+        rows_not_bit_equal_host=_rows_not_bit_equal(kern, host, real),
+        rows_not_bit_equal_plain_card_vs_host=_rows_not_bit_equal(plain, host, real),
+        max_abs_err=err, launches_per_call=launched, timer=timer, call_ms=call_ms,
+        plain_ms=cuda_ms(lambda: covariance.regularize_plane_plain(main), reps=5),
+        plain_device_ops_per_call=device_busy_ms(lambda: covariance.regularize_plane_plain(main))[1],
+        eigh_ms=cuda_ms(lambda: torch.linalg.eigh(main), reps=5),
+        bound_ms=bound, bound_by=by, bound_parts_ms=dict(bytes=bytes_ms, f32=f32_ms, f64=f64_ms),
+        **dev,
+    )
+    print("kernel check " + json.dumps(rec), flush=True)
+    check(launched == 1, f"regularize_plane: {launched} launches for one call")
+    check(rec["rows_not_bit_equal_card_plain"] == 0 and rec["rows_not_bit_equal_host"] == 0,
+          f"regularize_plane: the kernel differs from its plain version on "
+          f"{rec['rows_not_bit_equal_card_plain']} rows (card) / {rec['rows_not_bit_equal_host']} (host)")
     return rec
+
+
+def jv_cases(device):
+    """(name, cost, row_valid) for ``jv_solve`` at N = 32, 64 and 128:
+    uniform costs, integer ties, BIG rows and columns, all BIG and NaN
+    costs, with all, half, a quarter or no rows valid (or no mask)."""
+    import torch
+
+    from dynamic_direct_lidar_odometry_tpu_torch.ops import hungarian
+
+    rng = np.random.default_rng(11)
+    out = []
+    for N in (32, 64, 128):
+        for kind in ("uniform", "ties", "big", "all_big", "nan"):
+            if kind == "uniform":
+                c = rng.uniform(0, 10, (N, N))
+            elif kind == "ties":
+                c = rng.integers(0, 4, (N, N)).astype(np.float64)
+            elif kind == "big":
+                c = rng.uniform(0, 5, (N, N))
+                c[rng.random(N) < 0.3] = hungarian.BIG
+                c[:, rng.random(N) < 0.2] = hungarian.BIG
+            elif kind == "all_big":
+                c = np.full((N, N), hungarian.BIG)
+            else:
+                c = rng.integers(0, 20, (N, N)).astype(np.float64)
+                c[rng.random((N, N)) < 0.1] = np.nan
+            cost = torch.as_tensor(c.astype(np.float32), device=device)
+            for rv_name, rv in (("none", None), ("all", np.ones(N, bool)), ("half", rng.random(N) < 0.5),
+                                ("quarter", np.arange(N) < N // 4), ("empty", np.zeros(N, bool))):
+                out.append((f"{kind}_N{N}_{rv_name}", cost,
+                            None if rv is None else torch.as_tensor(rv, device=device)))
+    return out
+
+
+def check_jv(cases, tag, time_case=None):
+    """``hungarian.solve`` (the kernel) against ``solve_plain`` on the card
+    on every case: identical ``col_of_row``. ``time_case``: the index of
+    the case to time (device ms, call ms, plain ms, bound), with its path
+    steps (the plain version's host reads per step)."""
+    import torch
+
+    from dynamic_direct_lidar_odometry_tpu_torch.ops import hungarian
+
+    differ = []
+    for name, cost, rv in cases:
+        got, want = hungarian.solve(cost, rv), hungarian.solve_plain(cost, rv)
+        if not torch.equal(got, want):
+            differ.append(name)
+    torch.cuda.synchronize()
+    rec = dict(kernel="jv_solve", case=tag, cases=len(cases), cases_not_identical=differ, max_abs_err=0.0)
+    if time_case is not None:
+        name, cost, rv = cases[time_case]
+        N = cost.shape[0]
+        hungarian.HOST_READS.clear()
+        hungarian.solve_plain(cost, rv)
+        steps = hungarian.HOST_READS["path"]
+        valid = N if rv is None else int(rv.sum())
+        # bytes: the cost read once, row_valid, col_of_row; operations: per
+        # path step two subtractions and a potential update per column
+        bytes_ms = (4 * N * N + N + 4 * N) / HBM_BYTES_PER_S * 1e3
+        ops_ms = 3 * (N + 1) * steps / FP32_ISSUE_PER_S * 1e3
+        dev = device_times(lambda: hungarian.solve(cost, rv), KERNEL_NAMES["jv_solve"])
+        call_ms = cuda_ms(lambda: hungarian.solve(cost, rv))
+        timer = "profiler"
+        if dev["ms"] is None:
+            dev["ms"], timer = call_ms, "events"
+        bound, by = max((bytes_ms, "bytes"), (ops_ms, "operations"))
+        rec.update(timed_case=name, N=N, valid_rows=valid, path_steps=steps, timer=timer, call_ms=call_ms,
+                   plain_ms=cuda_ms(lambda: hungarian.solve_plain(cost, rv), reps=5),
+                   bound_ms=bound, bound_by=by, note="serial: bound by latency, not by bytes or operations",
+                   **dev)
+    print("kernel check " + json.dumps(rec), flush=True)
+    check(not differ, f"jv_solve {tag}: the kernel differs from solve_plain on {differ}")
+    return rec
+
+
+def check_card_kernels(tag, launches, tracker_updates, covariance_calls, host_reads):
+    """The launch checks of a phase on the main path: one ``jv_solve`` per
+    ``tracker.update`` and no host read of the JV solve, one
+    ``regularize_plane`` per ``plane_covariances`` call."""
+    rec = dict(jv_solve=launches.get("jv_solve", 0), tracker_updates=tracker_updates,
+               regularize_plane=launches.get("regularize_plane", 0), covariance_calls=covariance_calls,
+               jv_host_reads=host_reads)
+    print(f"{tag} card kernels " + json.dumps(rec), flush=True)
+    check(host_reads == 0, f"{tag}: {host_reads} host reads in the JV solve")
+    check(tracker_updates > 0, f"{tag}: no tracker update ran")
+    check(rec["jv_solve"] == tracker_updates,
+          f"{tag}: jv_solve launched {rec['jv_solve']} times for {tracker_updates} tracker updates")
+    check(rec["regularize_plane"] == covariance_calls,
+          f"{tag}: regularize_plane launched {rec['regularize_plane']} times for {covariance_calls} "
+          "covariance calls")
+    return rec
+
+
+@contextlib.contextmanager
+def card_kernel_counts(tag):
+    """Count the main path's tracker updates, covariance calls, the two
+    kernels' launches and the JV solve's host reads over the block (the
+    counts set to 0 on entry), then :func:`check_card_kernels` them.
+    Yields a dict that holds the launches afterwards."""
+    from dynamic_direct_lidar_odometry_tpu_torch.ops import covariance, hungarian, nn_cuda
+    from dynamic_direct_lidar_odometry_tpu_torch.tracking import tracker
+
+    out = {}
+    for k in ("jv_solve", "regularize_plane"):
+        nn_cuda.LAUNCHES[k] = 0
+    hungarian.HOST_READS.clear()
+    with recorded(tracker, ("update",)) as upd, recorded(covariance, ("plane_covariances",)) as cov:
+        yield out
+    launches = {k: nn_cuda.LAUNCHES[k] for k in ("jv_solve", "regularize_plane")}
+    out.update(launches)
+    check_card_kernels(tag, launches, upd["update"]["calls"], cov["plane_covariances"]["calls"],
+                       sum(hungarian.HOST_READS.values()))
 
 
 def check_dense(name, query, target):
@@ -715,7 +912,9 @@ def compare_detection(inputs, cfg):
         st, out = tracker.update(cfg.tracking, tracks, det.objects, x["dt"])
         return interop.state_to_numpy(det), interop.state_to_numpy(st), interop.state_to_numpy(out)
 
-    (dg, sg, og), (dc, sc, oc) = run("cuda"), run("cpu")
+    with card_kernel_counts("detection card") as counts:
+        dg, sg, og = run("cuda")
+    dc, sc, oc = run("cpu")
     flips = float(np.mean(dg.labels != dc.labels))
     slot_flips = float(np.mean(dg.pixel_slot != dc.pixel_slot))
     box_err = float(np.abs(dg.objects.state - dc.objects.state).max())
@@ -740,7 +939,7 @@ def compare_detection(inputs, cfg):
     for name, a, b in zip(og._fields, og, oc):
         if a.dtype.kind != "f":
             check(np.array_equal(a, b), f"tracker output {name} differs")
-    return rec
+    return counts
 
 
 def slice_summary(tag, poses, steps, ref, seq, n, card):
@@ -810,6 +1009,23 @@ def recorded(mod, names):
             setattr(mod, n, real[n])
 
 
+@contextlib.contextmanager
+def recorded_calls(mod, name):
+    """Keep the (args, kwargs) of every call of ``mod.<name>`` in a list,
+    without touching what it does."""
+    calls, real = [], getattr(mod, name)
+
+    def f(*a, **kw):
+        calls.append((a, kw))
+        return real(*a, **kw)
+
+    setattr(mod, name, f)
+    try:
+        yield calls
+    finally:
+        setattr(mod, name, real)
+
+
 def check_artifacts(out, res, cfg, n):
     """Phase 9: every file of the replay exists and parses."""
     from dynamic_direct_lidar_odometry_tpu_torch.io import pcd
@@ -866,7 +1082,8 @@ def replay_phase(cfg, seq, ref, card):
     sub = sub_sequence(seq, n)
     nn_cuda.LAUNCHES.clear()
     with tempfile.TemporaryDirectory() as out:
-        with recorded(runner.mapper, ("add_keyframe", "remove_boxes", "snapshot")) as calls:
+        with recorded(runner.mapper, ("add_keyframe", "remove_boxes", "snapshot")) as calls, \
+                card_kernel_counts("replay") as card_launches:
             res = runner.replay(cfg, sub, out_dir=out, evaluate=True, checkpoint_every=8,
                                 save_every=8, export_clouds_every=8)
         launches = nn_cuda.LAUNCHES["nn1_sparse"]
@@ -907,7 +1124,7 @@ def replay_phase(cfg, seq, ref, card):
         device_idle_share=1.0 - busy / (n - 1) / tot_bare.mean,
         resume_max_abs_m=resume_err, repeat_max_abs_m=repeat_err,
         final_history_boxes=int(valid.sum()), points_in_boxes=removed,
-        launches=dict(nn1_sparse=launches), **files,
+        launches=dict(nn1_sparse=launches, **card_launches), **files,
     )
     print("replay " + json.dumps(rec), flush=True)
     check(div <= DIVERGENCE_BAR_M, f"replay poses diverge {div * 1e3:.3f} mm from JAX")
@@ -921,7 +1138,7 @@ def replay_phase(cfg, seq, ref, card):
     check(torch.equal(m_card.mask.cpu(), m_host.mask) and torch.equal(m_card.points.cpu(), m_host.points),
           "remove_boxes differs between the card and the host")
     check(launches >= 3 * (n - 1), f"nn1_sparse launched {launches} times in {n - 1} replayed scans")
-    return launches
+    return launches, card_launches
 
 
 def hull_stores(K):
@@ -1040,7 +1257,8 @@ def kantplatz_phase(card):
     cfg = dataclasses.replace(config.kantplatz_config(), capacity=config.capacity_for_scan(512, 512))
     render_s = time.perf_counter() - t0
     nn_cuda.LAUNCHES.clear()
-    poses, steps = run_slice(cfg, seq.points, seq.mask, seq.stamps, "cuda", timed=True)
+    with card_kernel_counts("kantplatz") as card_launches:
+        poses, steps = run_slice(cfg, seq.points, seq.mask, seq.stamps, "cuda", timed=True)
     launches = nn_cuda.LAUNCHES["nn1_sparse"]
     summary, div = slice_summary("kantplatz", poses, steps, ref, seq, n, card)
     busy, ops = device_busy_ms(lambda: run_slice(cfg, seq.points, seq.mask, seq.stamps, "cuda"))
@@ -1058,7 +1276,7 @@ def kantplatz_phase(card):
         outside_window=[r["outside_window"] for r in steps],
         device_busy_ms_per_scan=busy / (n - 1), device_ops_per_scan=ops / (n - 1),
         device_idle_share=1.0 - busy / (n - 1) / mean_ms, mean_ms=mean_ms,
-        launches=dict(nn1_sparse=launches),
+        launches=dict(nn1_sparse=launches, **card_launches),
     )
     print("kantplatz " + json.dumps(summary), flush=True)
     check(div <= DIVERGENCE_BAR_M, f"kantplatz poses diverge {div * 1e3:.3f} mm from JAX")
@@ -1067,7 +1285,7 @@ def kantplatz_phase(card):
     check(abs(sum(dets) - sum(jax_dets)) <= DETECTION_BAR * sum(jax_dets),
           f"kantplatz: {sum(dets)} valid detections against {sum(jax_dets)} in the JAX run")
     check(launches >= 3 * (n - 1), f"nn1_sparse launched {launches} times in {n - 1} scans")
-    return launches
+    return launches, card_launches
 
 
 def chunk_phase(cfg, seq, dev):
@@ -1269,8 +1487,9 @@ def pt_rank(rank: int, port: int, data_path: str, out_dir: str) -> None:
 
     import dynamic_direct_lidar_odometry_tpu_torch  # noqa: F401  (sets the TF32 flags)
     from dynamic_direct_lidar_odometry_tpu_torch import config
-    from dynamic_direct_lidar_odometry_tpu_torch.ops import nn_cuda
+    from dynamic_direct_lidar_odometry_tpu_torch.ops import covariance, hungarian, nn_cuda
     from dynamic_direct_lidar_odometry_tpu_torch.parallel import distributed, sharding
+    from dynamic_direct_lidar_odometry_tpu_torch.tracking import tracker
 
     torch.cuda.set_device(0)
     distributed.initialize(f"127.0.0.1:{port}", PT, rank, backend="gloo")
@@ -1301,13 +1520,17 @@ def pt_rank(rank: int, port: int, data_path: str, out_dir: str) -> None:
     scans = []
     for i in range(1, len(pts)):
         nn_cuda.LAUNCHES.clear()
+        hungarian.HOST_READS.clear()
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        states, outs = step(states, pts[i:i + 1], msk[i:i + 1], ts[i:i + 1])
-        b.record()
-        b.synchronize()
+        with recorded(tracker, ("update",)) as upd, recorded(covariance, ("plane_covariances",)) as cov:
+            a.record()
+            states, outs = step(states, pts[i:i + 1], msk[i:i + 1], ts[i:i + 1])
+            b.record()
+            b.synchronize()
         scans.append(dict(
             ms=a.elapsed_time(b), launches=dict(nn_cuda.LAUNCHES),
+            tracker_updates=upd["update"]["calls"], covariance_calls=cov["plane_covariances"]["calls"],
+            jv_host_reads=sum(hungarian.HOST_READS.values()),
             linearizations=int(outs.odom.s2s_iterations[0]) + int(outs.odom.s2m_iterations[0]) + 1,
             s2m_converged=bool(outs.odom.s2m_converged[0]),
             keyframe_added=bool(outs.keyframe_added[0]), T=outs.odom.T[0].cpu().numpy().tolist(),
@@ -1394,7 +1617,9 @@ def point_parallel_phase(problems, seq, ref, card):
                       median_ms=statistics.median(ms[WARMUP_SCANS:]),
                       check_agree_ms=[r["check_agree_ms"] for r in ranks],
                       launches=[[r["launches"] for r in k["pipeline"]] for k in ranks],
-                      linearizations=[[r["linearizations"] for r in k["pipeline"]] for k in ranks]),
+                      linearizations=[[r["linearizations"] for r in k["pipeline"]] for k in ranks],
+                      tracker_updates_and_covariance_calls=[
+                          [[r["tracker_updates"], r["covariance_calls"]] for r in k["pipeline"]] for k in ranks]),
         note="two ranks share one card: these times say nothing of multi-card scaling",
     )
     print("point_parallel " + json.dumps(rec), flush=True)
@@ -1419,6 +1644,12 @@ def point_parallel_phase(problems, seq, ref, card):
                   f"scan {i + 1}: nn1_sparse launched {r['launches']} for {r['linearizations']} linearizations")
             check(r["launches"].get("knn_classes", 0) >= 1,
                   f"scan {i + 1}: knn_classes not launched for the point-parallel covariances")
+            check(r["jv_host_reads"] == 0 and r["tracker_updates"] > 0
+                  and r["launches"].get("jv_solve", 0) == r["tracker_updates"]
+                  and r["launches"].get("regularize_plane", 0) == r["covariance_calls"],
+                  f"scan {i + 1}: jv_solve / regularize_plane launched {r['launches']} for "
+                  f"{r['tracker_updates']} tracker updates and {r['covariance_calls']} covariance calls "
+                  f"({r['jv_host_reads']} JV host reads)")
     total = {}
     for k in ranks:
         for part in [k["align"]["launches"]] + [r["launches"] for r in k["pipeline"]]:
@@ -1452,7 +1683,11 @@ def accuracy_phase(seq, card, out_path=None):
             json.dump(rep, f, indent=1)
     check(not rep["gates_not_run"], f"accuracy gates not run: {rep['gates_not_run']}")
     check(rep["pass"], f"accuracy gates failed: {[g for g in rep['gates'] if not g['ok']]}")
-    return {k: sum(v["launches"].get(k, 0) for v in legs.values()) for k in ("nn1_sparse", "knn_classes")}
+    for name, v in legs.items():  # in the launch gate too; stated here
+        check_card_kernels(f"accuracy {name}", v["launches"], v["tracker_updates"], v["covariance_calls"],
+                           v["jv_host_reads"])
+    return {k: sum(v["launches"].get(k, 0) for v in legs.values())
+            for k in ("nn1_sparse", "knn_classes", "jv_solve", "regularize_plane")}
 
 
 def main(argv=None) -> int:
@@ -1573,10 +1808,12 @@ def main(argv=None) -> int:
                  check_sparse_batched("s2m_residual_b8", bq, bt, 3.0 * s2m_r)]
         for r in recs:
             records.setdefault(r["kernel"], []).append(r)
-        check_regularize(query, k)
+        records["regularize_plane"] = [check_regularize(query, k)]
+        records["jv_solve"] = [check_jv(jv_cases(dev), "random_ties_big_nan_N32_64_128")]
 
     launches = {}
     sparse_launches = {}  # nn1_sparse per phase that runs it, each read right after it
+    card_launches = {}  # jv_solve and regularize_plane per phase, each read right after it
     if 4 in phases:
         # ---- 4. plain DLO ----
         print(f"at {time.perf_counter() - t_start:.1f} s: phase 4", flush=True)
@@ -1599,7 +1836,8 @@ def main(argv=None) -> int:
         nn_cuda.LAUNCHES.clear()
         segmentation.SWEEPS.clear()
         hungarian.HOST_READS.clear()
-        with s2m_calls(ALIGN_B) as s2m:
+        with s2m_calls(ALIGN_B) as s2m, recorded_calls(hungarian, "solve") as solves, \
+                card_kernel_counts("ddlo") as card_launches[5]:
             poses, steps = run_slice(cfg, seq.points[:n], seq.mask[:n], seq.stamps[:n], dev,
                                      timed=True, keep=keep)
         sparse_launches[5] = nn_cuda.LAUNCHES["nn1_sparse"]
@@ -1623,11 +1861,24 @@ def main(argv=None) -> int:
         check(div <= DIVERGENCE_BAR_M, f"DDLO poses diverge {div * 1e3:.3f} mm from JAX")
         check(abs(sum(dets) - sum(jax_dets)) <= DETECTION_BAR * sum(jax_dets),
               f"{sum(dets)} valid detections against {sum(jax_dets)} in the JAX run")
+        # phase 3's jv_solve check on every tracker cost matrix of the run,
+        # timed on the solve with the most path steps
+        if 3 in phases:
+            cases = [(f"scan_solve_{i}", a[0], a[1] if len(a) > 1 else kw.get("row_valid"))
+                     for i, (a, kw) in enumerate(solves)]
+            steps_of = []
+            for _, cost, rv in cases:
+                hungarian.HOST_READS.clear()
+                hungarian.solve_plain(cost, rv)
+                steps_of.append(hungarian.HOST_READS["path"])
+            rec = check_jv(cases, "bench_tracker_16_scans", time_case=int(np.argmax(steps_of)))
+            rec.update(path_steps_per_solve=steps_of)
+            records["jv_solve"].insert(0, rec)
 
     if 6 in phases:
         # ---- 6. detection + tracking, card vs host ----
         print(f"at {time.perf_counter() - t_start:.1f} s: phase 6", flush=True)
-        compare_detection(inputs, cfg)
+        card_launches[6] = compare_detection(inputs, cfg)
 
     if 7 in phases:
         # ---- 7. full DDLO, dense backends ----
@@ -1668,7 +1919,7 @@ def main(argv=None) -> int:
     if 9 in phases:
         # ---- 9. the replay loop ----
         print(f"at {time.perf_counter() - t_start:.1f} s: phase 9", flush=True)
-        sparse_launches[9] = replay_phase(cfg, seq, ref_replay, card)
+        sparse_launches[9], card_launches[9] = replay_phase(cfg, seq, ref_replay, card)
 
     if 10 in phases:
         # ---- 10. the CLI at its own capacity (blocked hulls) ----
@@ -1678,7 +1929,7 @@ def main(argv=None) -> int:
     if 11 in phases:
         # ---- 11. kantplatz at 512 x 512 ----
         print(f"at {time.perf_counter() - t_start:.1f} s: phase 11", flush=True)
-        sparse_launches[11] = kantplatz_phase(card)
+        sparse_launches[11], card_launches[11] = kantplatz_phase(card)
 
     if 12 in phases:
         # ---- 12. step_chunk ----
@@ -1701,6 +1952,7 @@ def main(argv=None) -> int:
         print(f"at {time.perf_counter() - t_start:.1f} s: phase 15", flush=True)
         pt_launches = point_parallel_phase(problems, seq, ref_ddlo, card)
         sparse_launches[15] = pt_launches.get("nn1_sparse", 0)
+        card_launches[15] = {k: pt_launches.get(k, 0) for k in ("jv_solve", "regularize_plane")}
         for name in ("nn1_sparse_batched", "knn_classes"):
             launches[name] = launches.get(name, 0) + pt_launches.get(name, 0)
 
@@ -1709,9 +1961,13 @@ def main(argv=None) -> int:
         print(f"at {time.perf_counter() - t_start:.1f} s: phase 16", flush=True)
         acc_launches = accuracy_phase(seq, card, args.accuracy_out)
         sparse_launches[16] = acc_launches["nn1_sparse"]
+        card_launches[16] = {k: acc_launches[k] for k in ("jv_solve", "regularize_plane")}
         launches["knn_classes"] = launches.get("knn_classes", 0) + acc_launches["knn_classes"]
     launches["nn1_sparse"] = sum(sparse_launches.values())
+    for k in ("jv_solve", "regularize_plane"):
+        launches[k] = sum(v.get(k, 0) for v in card_launches.values())
     print(f"nn1_sparse launches by phase: {json.dumps(sparse_launches)}", flush=True)
+    print(f"jv_solve / regularize_plane launches by phase: {json.dumps(card_launches)}", flush=True)
     print(f"wall: {time.perf_counter() - t_start:.1f} s", flush=True)
 
     if not full:
@@ -1729,7 +1985,8 @@ def main(argv=None) -> int:
             call_ms=main_case["call_ms"],
             plain_ms=main_case["plain_ms"],
             bound_ms=main_case["bound_ms"], bound_by=main_case["bound_by"],
-            library_ms=None, cdist_ms=main_case["cdist_ms"], case=main_case["case"],
+            library_ms=None, cdist_ms=main_case.get("cdist_ms"), eigh_ms=main_case.get("eigh_ms"),
+            case=main_case["case"],
             **ptxas.get("nn1_sparse" if name == "nn1_sparse_batched" else name, {}),
         ))
     print(card)  # name, power.limit exactly as nvidia-smi prints them

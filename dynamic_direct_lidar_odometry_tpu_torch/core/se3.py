@@ -11,6 +11,7 @@ import math
 import torch
 
 from dynamic_direct_lidar_odometry_tpu_torch.core import device as device_mod
+from dynamic_direct_lidar_odometry_tpu_torch.core import fp
 
 _EPS = 1e-12
 
@@ -108,7 +109,7 @@ def matrix_to_quat(R: torch.Tensor) -> torch.Tensor:
     q64 = q.double()
     sq = (q64[..., 0] * q64[..., 0]).float()
     for c in (1, 2, 3):
-        sq = torch.addcmul(sq.double(), q64[..., c], q64[..., c]).float()
+        sq = fp.fma32(q64[..., c], q64[..., c], sq)
     return _div(q, torch.sqrt(sq.double()).float()[..., None])
 
 
@@ -157,14 +158,14 @@ def transform_points(T: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
     """Apply 4x4 transform (..., 4, 4) to points (..., N, 3).
 
     Rounds as the jitted JAX package does on the CPU, on every device:
-    XLA contracts the sum into ``fma(z, R2, fma(x, R0, y R1)) + t``, here
-    each FMA through f64, where the f32 products are exact. (GICP's loops
-    on the card take a plain elementwise form: ``gicp.TORCH``.)"""
+    XLA contracts the sum into ``fma(z, R2, fma(x, R0, y R1)) + t``, each
+    FMA rounded once (``fp.fma32``). (GICP's loops on the card take a
+    plain elementwise form: ``gicp.TORCH``.)"""
     f = torch.float64
     p, R = pts.to(f), T[..., :3, :3].to(f)
-    s = (p[..., 1:2] * R[..., None, :, 1]).float().to(f)
-    s = torch.addcmul(s, p[..., 0:1], R[..., None, :, 0]).float().to(f)
-    s = torch.addcmul(s, p[..., 2:3], R[..., None, :, 2]).float()
+    s = (p[..., 1:2] * R[..., None, :, 1]).float()
+    s = fp.fma32(p[..., 0:1], R[..., None, :, 0], s)
+    s = fp.fma32(p[..., 2:3], R[..., None, :, 2], s)
     return s + T[..., None, :3, 3]
 
 

@@ -8,6 +8,7 @@ from typing import NamedTuple
 import torch
 
 from dynamic_direct_lidar_odometry_tpu_torch.config import DDLOConfig
+from dynamic_direct_lidar_odometry_tpu_torch.core import fp
 from dynamic_direct_lidar_odometry_tpu_torch.ops import filters
 
 
@@ -54,15 +55,13 @@ def masked_median_range(points: torch.Tensor, mask: torch.Tensor) -> torch.Tenso
     with a correctly rounded root, so that it does not depend on the
     host: ``torch.sqrt`` of an f32 CPU tensor was measured up to 0.74 ulp
     off on one host (AMD EPYC, torch 2.13), where XLA's and numpy's
-    roots are correctly rounded. A
-    product of two f32 is exact in f64, so each multiply-add is the f64
-    product plus the accumulator, rounded to f32; the f64 root of an f32,
+    roots are correctly rounded. Each
+    multiply-add rounds once (``fp.fma32``); the f64 root of an f32,
     rounded to f32, is the correctly rounded f32 root (53 >= 2 * 24 + 2
     bits)."""
     x, y, z = points.unbind(dim=1)
-    y, z = y.double(), z.double()
-    s = torch.addcmul((x * x).double(), y, y).float()
-    s = torch.addcmul(s.double(), z, z).float()
+    s = fp.fma32(y, y, x * x)
+    s = fp.fma32(z, z, s)
     d = torch.sqrt(s.double()).float()
     d = torch.where(mask, d, torch.inf)
     cnt = mask.sum()

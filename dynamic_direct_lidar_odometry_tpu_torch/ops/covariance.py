@@ -9,8 +9,9 @@ import os
 
 import torch
 
-from dynamic_direct_lidar_odometry_tpu_torch.core import device
+from dynamic_direct_lidar_odometry_tpu_torch.core import device, fp
 from dynamic_direct_lidar_odometry_tpu_torch.ops import knn as knn_ops
+from dynamic_direct_lidar_odometry_tpu_torch.ops import nn_cuda
 
 
 def plane_covariances(
@@ -55,18 +56,16 @@ def neighborhood_covariance(neigh: torch.Tensor) -> torch.Tensor:
     jitted CPU code takes: the mean as a sequential sum over k times the
     f32 ``1/k`` (XLA turns a division by a constant into that product),
     the covariance as k sequential fused multiply-adds of the outer
-    products, then times ``1/k``. A product of two f32 is exact in f64,
-    so each multiply-add is the f64 product plus the accumulator, rounded
-    to f32."""
+    products (``fp.fma32``), then times ``1/k``."""
     k = neigh.shape[1]
     s = neigh[:, 0]
     for j in range(1, k):
         s = s + neigh[:, j]
-    centered = (neigh - (s * (1.0 / k))[:, None, :]).double()
+    centered = neigh - (s * (1.0 / k))[:, None, :]
     acc = torch.zeros(neigh.shape[0], 3, 3, dtype=torch.float32, device=neigh.device)
     for j in range(k):
         c = centered[:, j]
-        acc = torch.addcmul(acc.double(), c[:, :, None], c[:, None, :]).float()
+        acc = fp.fma32(c[:, :, None], c[:, None, :], acc)
     return acc * (1.0 / k)
 
 
@@ -110,13 +109,12 @@ def _window_self_covariances(
 
 
 # Every function below rounds as the JAX package's jitted
-# ``regularize_plane`` does on the CPU (XLA, x86-64 with FMA, glibc 2.36).
+# ``regularize_plane`` does on the CPU (XLA, x86-64 with FMA, glibc 2.36);
+# ``csrc/plane_reg.cu`` is the same chain, operation for operation.
 # - XLA's CPU code generator contracts a multiply feeding an add or a
 #   subtract into one fused multiply-add, taking the product that is the
 #   first operand in its fusion's LLVM IR; each contraction is written out
-#   as ``_fma``. A product of two f32 is exact in f64, so the f64 product
-#   plus the f64 addend, rounded to f32, is the fused result (up to a double
-#   rounding that needs 29 more bits to tie).
+#   as ``_fma``, one correctly rounded multiply-add (``fp.fma32``).
 # - XLA runs with denormals flushed to zero, on input and on output:
 #   ``_ftz`` follows every f32 operation of the chain.
 # - Roots and quotients are taken in f64 and rounded once, which is
@@ -126,7 +124,8 @@ def _window_self_covariances(
 #   ``atan2(sqrt((1 - x)(1 + x)), x)``); ``_cosf`` and ``_atan2f`` copy
 #   glibc's algorithms.
 # Every step is its own eager op, so no fused kernel on the card contracts
-# or reorders anything, and the card gives the host's bits.
+# or reorders anything, and the plain version on the card gives the host's
+# bits.
 
 _DENORM_MAX = 2.0**-126 - 2.0**-149  # the largest f32 denormal
 
@@ -137,9 +136,8 @@ def _ftz(x: torch.Tensor) -> torch.Tensor:
 
 
 def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """f32 ``a * b + c`` with one rounding, flushed (the f64 product is
-    exact, so an f64 multiply-add fused or not gives the same sum)."""
-    return _ftz(torch.addcmul(c.double(), a.double(), b.double()).float())
+    """f32 ``a * b + c`` with one rounding, flushed."""
+    return _ftz(fp.fma32(a, b, c))
 
 
 def _mul(a: torch.Tensor, b) -> torch.Tensor:
@@ -317,9 +315,36 @@ def _smallest_eigvec(A: torch.Tensor, k: _K) -> torch.Tensor:
 
 
 def regularize_plane(cov: torch.Tensor) -> torch.Tensor:
-    """Spectrum-replace each covariance with (1, 1, 1e-3):
-    ``I - (1 - 1e-3) n n^T`` with n the surface normal (the subtraction
-    contracted, as XLA does)."""
+    """Spectrum-replace each (..., 3, 3) covariance with (1, 1, 1e-3):
+    ``I - (1 - 1e-3) n n^T`` with n the surface normal. A CUDA tensor
+    launches ``csrc/plane_reg.cu`` (one launch, one thread per matrix,
+    counted in ``nn_cuda.LAUNCHES["regularize_plane"]``) or raises; a CPU
+    tensor runs :func:`regularize_plane_plain`, the kernel's plain
+    version; any other device raises. Both give the same bits."""
+    if cov.is_cuda:
+        return _regularize_plane_cuda(cov)
+    if cov.device.type != "cpu":
+        raise ValueError(f"regularize_plane: no kernel for a tensor on {cov.device}")
+    return regularize_plane_plain(cov)
+
+
+def _regularize_plane_cuda(cov: torch.Tensor) -> torch.Tensor:
+    if cov.dtype != torch.float32 or cov.dim() < 2 or tuple(cov.shape[-2:]) != (3, 3):
+        raise ValueError(
+            f"regularize_plane: expected (..., 3, 3) float32, got {cov.dtype} {tuple(cov.shape)}"
+        )
+    flat = cov.reshape(-1, 3, 3).contiguous()
+    out = torch.empty_like(flat)
+    if flat.shape[0]:
+        lib = nn_cuda.build()["plane_reg"].lib
+        nn_cuda.run_kernel(lib.ddlo_plane_reg, "regularize_plane", flat, flat.shape[0], out)
+    return out.reshape(cov.shape)
+
+
+def regularize_plane_plain(cov: torch.Tensor) -> torch.Tensor:
+    """The kernel's plain version (~700 eager operations): the
+    regularization in XLA's CPU bits, the final subtraction contracted as
+    XLA contracts it."""
     k = _K(cov.device)
     n = _smallest_eigvec(cov, k)
     eye = torch.eye(3, dtype=cov.dtype, device=cov.device)

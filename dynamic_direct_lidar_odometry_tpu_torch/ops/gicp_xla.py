@@ -55,10 +55,46 @@ def _mul(a, b):
     return _r(_f(a) * _f(b))
 
 
+def odd_sum(p, c) -> np.ndarray:
+    """numpy twin of ``core.fp.odd_sum``: the f64 ``p + c`` rounded to
+    odd (TwoSum's exact error; an inexact sum whose last bit is even
+    steps one ulp toward it), so that one more rounding, to f32, is the
+    correctly rounded f32 sum."""
+    p, c = np.broadcast_arrays(_f(p), _f(c))
+    with np.errstate(invalid="ignore"):  # inf - inf in the error of an inf sum
+        s = p + c
+        pp = s - c
+        e = (p - pp) + (c - (s - pp))
+    bits = np.asarray(s).view(np.int64)
+    odd = (bits - ((e > 0) != (s > 0))) | 1
+    return np.where((e != 0) & np.isfinite(e), odd, bits).view(np.float64)
+
+
+_LOW29, _MID29 = (1 << 29) - 1, 1 << 28  # the f64 fraction bits below f32's
+_F32_TINY = 897 << 52  # the f64 bits of 2^-126: below it f32 is subnormal
+
+
+def _misrounds(s: np.ndarray, p: np.ndarray, c: np.ndarray) -> np.ndarray:
+    """Where ``s``, the f64 sum of ``p + c``, may round to f32 otherwise
+    than the exact sum: an inexact ``s`` on an f32 midpoint or in f32's
+    subnormal range (each f32 rounding boundary is an f64 number, so the
+    exact sum lies on the same side of it as its f64 rounding unless that
+    lands on it). ``s - p == c`` and ``s - c == p`` both hold only for an
+    exact sum (Fast2Sum: the difference with the larger term is exact)."""
+    t = s.view(np.int64) & 0x7FFFFFFFFFFFFFFF
+    near = ((t & _LOW29) == _MID29) | ((t < _F32_TINY) & (t != 0))
+    with np.errstate(invalid="ignore"):
+        return near & ((s - p != c) | (s - c != p))
+
+
+def fma32(a, b, c) -> np.ndarray:
+    """numpy twin of ``core.fp.fma32``: f32 ``a * b + c`` with one
+    rounding (the f64 product of two f32 is exact), denormals kept."""
+    return odd_sum(_f(a) * _f(b), c).astype(np.float32)
+
+
 def _fma(a, b, c):
-    # the f64 product of two f32 is exact; the sum rounds once in f64
-    # and once to f32 (a double rounding needs 29 more bits to tie)
-    return _r(_f(a) * _f(b) + _f(c))
+    return _r(odd_sum(_f(a) * _f(b), c))
 
 
 def dot3(a: np.ndarray, b: np.ndarray) -> np.ndarray:
@@ -178,11 +214,31 @@ def tree_sum(x: np.ndarray) -> np.ndarray:
 
 
 def fma_chain(a: np.ndarray, b: np.ndarray, acc=0.0) -> np.ndarray:
-    """acc = fma(a[k], b[k], acc) for k in order: (K, ...) -> (...)."""
+    """acc = fma(a[k], b[k], acc) for k in order: (K, ...) -> (...).
+
+    The chain runs with plain f64 sums, each kept; afterwards one check
+    over all of them finds the first step whose sum may round otherwise
+    than its exact value (:func:`_misrounds`: about 2^-29 of the inexact
+    sums), which is redone with the odd sum, and the chain resumed from
+    there."""
     p = _f(a) * _f(b)
-    acc = np.broadcast_to(_f(acc), p.shape[1:])
-    for k in range(p.shape[0]):
-        acc = (acc + p[k]).astype(np.float32).astype(np.float64)
+    K = p.shape[0]
+    acc0 = np.broadcast_to(_f(acc), p.shape[1:])
+    sums = np.empty(p.shape)
+    start, acc = 0, acc0
+    while start < K:
+        for k in range(start, K):
+            np.add(acc, p[k], out=sums[k])
+            acc = sums[k].astype(np.float32).astype(np.float64)
+        prev = np.concatenate([acc0[None] if start == 0 else sums[start - 1:start],
+                               sums[start:K - 1]]).astype(np.float32).astype(np.float64)
+        bad = _misrounds(sums[start:], p[start:], prev).reshape(K - start, -1).any(axis=1)
+        if not bad.any():
+            break
+        k0 = start + int(np.argmax(bad))
+        acc = odd_sum(prev[k0 - start], p[k0]).astype(np.float32).astype(np.float64)
+        sums[k0] = acc
+        start = k0 + 1
     return _r(acc)
 
 

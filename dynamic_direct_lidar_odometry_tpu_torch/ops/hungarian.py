@@ -1,12 +1,16 @@
 """Optimal linear assignment (counterpart of ``ops/hungarian.py``).
 
 The Jonker-Volgenant successive-shortest-augmenting-path solve on a
-padded N x N cost matrix, with the JAX package's f32 arithmetic. Its two
-``lax.while_loop``s depend on the data; here they are Python loops over
-tensors that stay on the cost's device: the shortest-path loop reads one
-value pair back to the host per step (the next column and whether it is
-free), and the augmentation reads the ``way`` array once per inserted
-row. :data:`HOST_READS` counts those reads.
+padded N x N cost matrix, with the JAX package's f32 arithmetic. The JAX
+package runs its ``lax`` loops on the device as one program. Here
+:func:`solve` launches ``csrc/jv_solve.cu`` for a CUDA cost: the whole
+solve in one block, one launch, no host read (counted in
+``nn_cuda.LAUNCHES["jv_solve"]``). For a CPU cost it runs
+:func:`solve_plain`, the kernel's plain version: the same loops in
+Python over tensors, whose shortest-path loop reads one value pair back
+to the host per step (the next column and whether it is free) and whose
+augmentation reads the ``way`` array once per inserted row.
+:data:`HOST_READS` counts those reads.
 """
 
 from __future__ import annotations
@@ -15,18 +19,51 @@ import collections
 
 import torch
 
+from dynamic_direct_lidar_odometry_tpu_torch.ops import nn_cuda
+
 BIG = 1.0e6
 _INF = 3.0e12
 
-# host reads by loop ("path" per shortest-path step, "augment" per row,
-# "rows" per solve)
+# host reads of solve_plain by loop ("path" per shortest-path step,
+# "augment" per row, "rows" per solve)
 HOST_READS: collections.Counter = collections.Counter()
 
 
 def solve(cost: torch.Tensor, row_valid: torch.Tensor | None = None) -> torch.Tensor:
     """Minimum-cost assignment on a square (N, N) matrix: col_of_row (N,)
-    int32, -1 for skipped rows. ``row_valid`` rows that are False are not
-    inserted (their result is -1 or, see below, the JAX scatter's value)."""
+    int32, -1 for skipped rows (see :func:`solve_plain`). A CUDA cost
+    launches the kernel (N + 1 <= 1,024) or raises; a CPU cost runs
+    :func:`solve_plain`; any other device raises."""
+    if cost.is_cuda:
+        return _solve_cuda(cost, row_valid)
+    if cost.device.type != "cpu":
+        raise ValueError(f"hungarian.solve: no kernel for a cost on {cost.device}")
+    return solve_plain(cost, row_valid)
+
+
+def _solve_cuda(cost: torch.Tensor, row_valid: torch.Tensor | None) -> torch.Tensor:
+    N = cost.shape[0]
+    if cost.dim() != 2 or cost.shape[1] != N or (
+        row_valid is not None and (row_valid.shape != (N,) or row_valid.device != cost.device)
+    ):
+        raise ValueError(
+            f"jv_solve: expected a square cost and (N,) row_valid on its device, got "
+            f"{tuple(cost.shape)} and {None if row_valid is None else tuple(row_valid.shape)}"
+        )
+    out = torch.empty(N, dtype=torch.int32, device=cost.device)
+    if N == 0:
+        return out
+    lib = nn_cuda.build()["jv_solve"].lib  # its launch fails past N = 1,023
+    rv = None if row_valid is None else row_valid.to(torch.bool).contiguous()
+    nn_cuda.run_kernel(lib.ddlo_jv_solve, "jv_solve",
+                       cost.to(torch.float32).contiguous(), rv, N, out)
+    return out
+
+
+def solve_plain(cost: torch.Tensor, row_valid: torch.Tensor | None = None) -> torch.Tensor:
+    """The kernel's plain version: col_of_row (N,) int32, -1 for skipped
+    rows. ``row_valid`` rows that are False are not inserted (their result
+    is -1 or, see below, the JAX scatter's value)."""
     N = cost.shape[0]
     dev = cost.device
     C = torch.nn.functional.pad(cost.to(torch.float32), (1, 0, 1, 0))  # 1-indexed

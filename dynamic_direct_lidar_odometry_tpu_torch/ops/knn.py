@@ -21,7 +21,7 @@ from typing import Tuple
 
 import torch
 
-from dynamic_direct_lidar_odometry_tpu_torch.core import device
+from dynamic_direct_lidar_odometry_tpu_torch.core import device, fp
 from dynamic_direct_lidar_odometry_tpu_torch.core.cloud import SENTINEL, pad_rows
 from dynamic_direct_lidar_odometry_tpu_torch.ops import nn_cuda
 
@@ -55,10 +55,8 @@ def knn_best(query: torch.Tensor, target: torch.Tensor, k: int):
 
 
 def _f32(x: torch.Tensor) -> torch.Tensor:
-    """f64 -> f32, one rounding (the f64 product of two f32 is exact, so
-    a multiply-add in f64 then f32 is the f32 FMA but for a double
-    rounding that needs 29 more bits to tie), denormals flushed as XLA's
-    CPU code flushes them."""
+    """To f32 (one rounding from f64), denormals flushed as XLA's CPU code
+    flushes them."""
     return torch.nn.functional.hardshrink(x.float(), _DENORM_MAX)
 
 
@@ -70,7 +68,7 @@ def _sumsq(v: torch.Tensor, xla: bool) -> torch.Tensor:
     v = v.double()
     acc = _f32(v[..., 0] * v[..., 0])
     for c in (1, 2):
-        acc = _f32(torch.addcmul(acc.double(), v[..., c], v[..., c]))
+        acc = _f32(fp.fma32(v[..., c], v[..., c], acc))
     return acc
 
 
@@ -82,7 +80,7 @@ def _xla_sqdist(q: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     q64, t64 = q.double(), t.double()
     c = _f32(q64[..., 0] * t64[..., 0])
     for i in (1, 2):
-        c = _f32(torch.addcmul(c.double(), q64[..., i], t64[..., i]))
+        c = _f32(fp.fma32(q64[..., i], t64[..., i], c))
     return (_sumsq(q, True) + _sumsq(t, True)) - 2.0 * c
 
 

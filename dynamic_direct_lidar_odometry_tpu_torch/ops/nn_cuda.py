@@ -34,6 +34,12 @@ the JAX ones:
 (``nn1_pallas``) and :func:`knn_approx` (``knn_approx_pallas``); and
 for B streams at once, :func:`prepare_sparse_targets` /
 :func:`nn1_sparse_batched_prepared`.
+
+:func:`build` builds every library of the port at once, and
+:data:`LAUNCHES` counts every kernel: also the two that the JAX package
+left to XLA, ``jv_solve`` (``csrc/jv_solve.cu``, launched by
+``ops/hungarian.solve``) and ``regularize_plane`` (``csrc/plane_reg.cu``,
+``ops/covariance.regularize_plane``).
 """
 
 from __future__ import annotations
@@ -134,14 +140,18 @@ def nn1_sparse_reference(
     return idx, dist
 
 
-_SOURCES = {"nn1_sparse": ("nn1_sparse.cu",), "knn_classes": ("knn_classes.cu",)}
+# every library of the port's CUDA sources: this module's, and those of
+# ``ops/hungarian.py`` (``jv_solve``) and ``ops/covariance.py``
+# (``plane_reg``), built together at first use
+_SOURCES = {"nn1_sparse": ("nn1_sparse.cu",), "knn_classes": ("knn_classes.cu",),
+            "jv_solve": ("jv_solve.cu",), "plane_reg": ("plane_reg.cu",)}
 _BUILT: Dict[str, _cuda_build.Built] = {}
 
 
 def build() -> Dict[str, _cuda_build.Built]:
     """Compile (at first use; one nvcc per source, all started together)
-    and load the kernel libraries: ``{"nn1_sparse": Built, "knn_classes":
-    Built}``."""
+    and load the kernel libraries: ``{name: Built}`` for each name of
+    :data:`_SOURCES`."""
     if _BUILT:
         return _BUILT
     built = _cuda_build.load_all(_SOURCES)
@@ -157,6 +167,8 @@ def build() -> Dict[str, _cuda_build.Built]:
         ("knn_classes", "ddlo_knn_classes_sparse", [P] * 4 + [I] * 6 + [P] * 3),
         ("knn_classes", "ddlo_knn_classes_queries_per_block", []),
         ("knn_classes", "ddlo_knn_classes_unit_rows", []),
+        ("jv_solve", "ddlo_jv_solve", [P, P, I, P, P]),
+        ("plane_reg", "ddlo_plane_reg", [P, I, P, P]),
     ):
         f = getattr(built[lib].lib, fn)
         f.argtypes = args
@@ -188,9 +200,10 @@ def _check_inputs(q, tt, counts=None, lists=None):
         )
 
 
-def _run(fn, name, *args):
-    """Launch ``fn`` on the current stream of the args' device; raise on a
-    refused launch; count it."""
+def run_kernel(fn, name, *args):
+    """Launch ``fn`` on the current stream of the first arg's device; raise
+    on a refused launch; count it in :data:`LAUNCHES` under ``name``.
+    Tensors pass as their data pointers, None as a null pointer."""
     with torch.cuda.device(args[0].device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(*(a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args), stream)
@@ -245,7 +258,7 @@ def _nn1_launch(lib, fn, name, q, tt, units, args):
         splits = nn1_splits(units, blocks, _resident_blocks(lib, q.device))
         keys = torch.full((Qp,), KEY_INIT, dtype=torch.int64, device=q.device)
         LAUNCHES["nn1_key_fill"] += 1
-        _run(fn, name, *args, splits, keys)
+        run_kernel(fn, name, *args, splits, keys)
     return unpack_keys(keys)
 
 
@@ -621,10 +634,10 @@ def knn_classes_chunks(
     if Qp == 0:
         return out_idx, out_d
     if sparse:
-        _run(lib.ddlo_knn_classes_sparse, "knn_classes_sparse", q, tt, counts, lists,
+        run_kernel(lib.ddlo_knn_classes_sparse, "knn_classes_sparse", q, tt, counts, lists,
              Qp, Tp, Tp // t_chunk, q_tile, t_chunk, k, out_idx, out_d)
     else:
-        _run(lib.ddlo_knn_classes, "knn_classes", q, tt, Qp, Tp, t_chunk, k, out_idx, out_d)
+        run_kernel(lib.ddlo_knn_classes, "knn_classes", q, tt, Qp, Tp, t_chunk, k, out_idx, out_d)
     return out_idx, out_d
 
 

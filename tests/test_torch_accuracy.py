@@ -167,9 +167,28 @@ def test_report_fails_on_ground_truth_and_launches():
     ("laneclass", {"nn1_sparse": 30, "knn_classes": 7}, True),
     ("laneclass", {"nn1_sparse": 30, "knn_classes": 6}, False),
     ("laneclass", {"nn1_dense": 30, "knn_classes": 7}, False),
+    ("none", {"jv_solve": 1}, False),  # on the host nothing launches
+    ("none", {"regularize_plane": 7}, False),
 ])
 def test_launch_check(path, launches, ok):
     assert acc.launch_check(path, launches, linearizations=30, covariance_calls=7) is ok
+
+
+@pytest.mark.parametrize("path, launches, ok", [
+    ("none", {"jv_solve": 5, "regularize_plane": 7}, True),
+    ("none", {"jv_solve": 5, "regularize_plane": 7, "nn1_sparse": 1}, False),
+    ("none", {"jv_solve": 4, "regularize_plane": 7}, False),
+    ("none", {"jv_solve": 5, "regularize_plane": 8}, False),
+    ("none", {"jv_solve": 5}, False),
+    ("sparse", {"nn1_sparse": 30, "nn1_key_fill": 30, "jv_solve": 5, "regularize_plane": 7}, True),
+    ("sparse", {"nn1_sparse": 30, "nn1_key_fill": 30, "regularize_plane": 7}, False),
+    ("laneclass", {"nn1_sparse": 30, "knn_classes": 7, "jv_solve": 5, "regularize_plane": 7}, True),
+    ("laneclass", {"nn1_sparse": 30, "knn_classes": 7, "jv_solve": 6, "regularize_plane": 7}, False),
+])
+def test_launch_check_on_the_card(path, launches, ok):
+    """On the card every path also launches ``jv_solve`` once per tracker
+    update and ``regularize_plane`` once per covariance call."""
+    assert acc.launch_check(path, launches, linearizations=30, covariance_calls=7, tracker_updates=5) is ok
 
 
 @pytest.mark.parametrize("leg", ["gpu_default", "gpu_exact", "gpu_exact_hulls", "gpu_laneclass"])
@@ -207,4 +226,6 @@ def test_host_leg_equals_replay_and_restores_the_environment(monkeypatch):
     assert rec["ate"] == metrics.ate_rmse(res.poses, seq.gt_poses, res.stamps, seq.stamps)
     assert len(rec["keyframe_added"]) == 2 and rec["linearizations"] >= 2 * 3
     assert rec["launches"] == {} and rec["launch_check"]
+    assert rec["tracker_updates"] == 2 and rec["jv_host_reads"] > 0
+    assert rec["covariance_calls"] >= 2 + 2  # init (scan and keyframe), one per scan
     assert rec["total_ms_per_scan"]["n"] == res.profiler["total"].n

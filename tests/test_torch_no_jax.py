@@ -6,13 +6,16 @@ chip_smoke's own helper, two scans of ``runner.replay``, the CLI's
 ``synth``, ``parallel.replay.replay_batch`` (2 streams, 2 scans),
 ``pipeline.step_chunk``, a binary ``io.pcd.save_pcd`` through
 ``io.native`` and ``point_parallel_pipeline_step`` in a world of one
-``parallel.distributed`` rank, and load ``tools/torch_accuracy.py``; and a
-static scan of their imports (that tool's too)."""
+``parallel.distributed`` rank, and load ``tools/torch_accuracy.py``; a
+static scan of their imports (that tool's and ``tools/torch_profile_slice.py``'s
+too); and a scan of the CUDA sources' includes."""
 
 import os
 import re
 import subprocess
 import sys
+
+import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -140,7 +143,8 @@ def test_port_sources_never_import_jax():
     pkg_pat = re.compile(
         r"^\s*(import|from)\s+dynamic_direct_lidar_odometry_tpu(?!_torch)\b", re.M
     )
-    files = [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "tools", "torch_accuracy.py")]
+    files = [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "tools", "torch_accuracy.py"),
+             os.path.join(ROOT, "tools", "torch_profile_slice.py")]
     for d, _, names in os.walk(os.path.join(ROOT, "dynamic_direct_lidar_odometry_tpu_torch")):
         files += [os.path.join(d, f) for f in names if f.endswith(".py")]
     assert len(files) > 20
@@ -148,3 +152,25 @@ def test_port_sources_never_import_jax():
     assert not offenders, offenders
     offenders = [f for f in files if pkg_pat.search(open(f).read())]
     assert not offenders, offenders
+
+
+def _cuda_sources():
+    from dynamic_direct_lidar_odometry_tpu_torch.ops import nn_cuda
+
+    return sorted({s for srcs in nn_cuda._SOURCES.values() for s in srcs})
+
+
+@pytest.mark.parametrize("source", _cuda_sources())
+def test_cuda_sources_are_hand_written_with_a_plain_c_interface(source):
+    """Every CUDA source the port builds (``nn_cuda._SOURCES``: the NN
+    kernels, ``jv_solve.cu``, ``plane_reg.cu``) lies in the package's
+    ``csrc/``, is bound through ``extern "C"`` (no PyTorch headers, so
+    ``nvcc`` builds it in seconds) and calls no library of finished
+    kernels."""
+    path = os.path.join(ROOT, "dynamic_direct_lidar_odometry_tpu_torch", "csrc", source)
+    text = open(path).read()
+    assert 'extern "C"' in text and "__global__" in text
+    includes = re.findall(r'^\s*#\s*include\s*[<"]([^>"]+)[>"]', text, re.M)
+    banned = ("torch", "ATen", "c10", "cublas", "cudnn", "cusparse", "cufft", "thrust", "cub/", "cutlass",
+              "jax", "xla")
+    assert not [i for i in includes if i.startswith(banned)], includes

@@ -5,7 +5,7 @@ Replays ``bench_config()`` over the 64 scans of ``steady_state_sequence(64)``
 through the port's ``runner.replay`` in four card legs,
 
   gpu_default     : sparse 1-NN kernel + Morton-window covariances (the default)
-  gpu_exact       : DDLO_NN_IMPL=exact, DDLO_KNN_IMPL=exact (no kernel runs)
+  gpu_exact       : DDLO_NN_IMPL=exact, DDLO_KNN_IMPL=exact (no NN kernel runs)
   gpu_exact_hulls : the default backends with the host's exact hulls
   gpu_laneclass   : DDLO_KNN_IMPL=pallas (lane-class k-NN kernel covariances)
 
@@ -25,7 +25,10 @@ of ``jax_cpu_window``, ``gpu_exact`` within 1 cm of ``jax_cpu_exact``.
 ``jax_cpu_exact``. ``gpu_default`` vs ``jax_cpu_exact`` and the two JAX
 runs against each other are reported, not gated: they show what the
 window approximation costs apart from the port. Each leg also checks that
-it took its path, from the kernels' launch counts. Keyframe counts and map
+it took its path, from the kernels' launch counts: its NN kernels and, on
+the card, one ``jv_solve`` launch per tracker update and one
+``regularize_plane`` launch per covariance call, with no host read of the
+JV assignment. Keyframe counts and map
 points are reported beside the JAX runs' and not gated.
 
 A card leg raises without a CUDA card. ``--legs port_cpu_exact`` runs the
@@ -58,9 +61,9 @@ GOLDEN = {
 RUNS = os.path.join(REPO, ".torch_accuracy_runs")
 IMPL_VARS = ("DDLO_NN_IMPL", "DDLO_KNN_IMPL")
 EXACT = {"DDLO_NN_IMPL": "exact", "DDLO_KNN_IMPL": "exact"}
-# path: which kernels a leg must launch ("sparse": nn1_sparse for every
+# path: which NN kernels a leg must launch ("sparse": nn1_sparse for every
 # linearization and residual pass; "laneclass": that and knn_classes for
-# every covariance call; "none": no kernel at all)
+# every covariance call; "none": no NN kernel)
 LEGS = {
     "gpu_default": dict(device="cuda", env={}, hulls="device", path="sparse"),
     "gpu_exact": dict(device="cuda", env=EXACT, hulls="device", path="none"),
@@ -161,9 +164,40 @@ def _recorded_steps(pipeline):
         pipeline.step = real
 
 
-def launch_check(path: str, launches: dict, linearizations: int, covariance_calls: int) -> bool:
-    """Did the leg take its path? See :data:`LEGS`."""
+# launched on the card at every tracker update and covariance call, by any path
+CARD_KERNELS = ("jv_solve", "regularize_plane")
+
+
+@contextlib.contextmanager
+def _counted(mod, name):
+    """Count the calls of ``mod.<name>`` (a one-element list) without
+    changing what it does."""
+    calls, real = [0], getattr(mod, name)
+
+    def counted(*a, **kw):
+        calls[0] += 1
+        return real(*a, **kw)
+
+    setattr(mod, name, counted)
+    try:
+        yield calls
+    finally:
+        setattr(mod, name, real)
+
+
+def launch_check(path: str, launches: dict, linearizations: int, covariance_calls: int,
+                 tracker_updates: int | None = None) -> bool:
+    """Did the leg take its path? See :data:`LEGS`. On the card
+    (``tracker_updates`` given) ``jv_solve`` launched once per tracker
+    update and ``regularize_plane`` once per covariance call; on the host
+    neither ran."""
     got = {k: v for k, v in launches.items() if v}
+    card = dict(zip(CARD_KERNELS, (tracker_updates, covariance_calls)))
+    if tracker_updates is None:
+        if set(got) & set(card):
+            return False
+    elif any(got.pop(k, 0) != want for k, want in card.items()):
+        return False
     if path == "none":
         return not got
     sparse = got.get("nn1_sparse", 0) >= linearizations > 0
@@ -179,30 +213,36 @@ def run_leg(name: str, cfg, seq, progress: bool = False) -> dict:
     import torch
 
     from dynamic_direct_lidar_odometry_tpu_torch import runner
-    from dynamic_direct_lidar_odometry_tpu_torch.ops import nn_cuda
+    from dynamic_direct_lidar_odometry_tpu_torch.odometry import odometry
+    from dynamic_direct_lidar_odometry_tpu_torch.ops import hungarian, nn_cuda
     from dynamic_direct_lidar_odometry_tpu_torch.utils import metrics
 
     spec = LEGS[name]
-    if spec["device"] == "cuda" and not torch.cuda.is_available():
+    card = spec["device"] == "cuda"
+    if card and not torch.cuda.is_available():
         raise RuntimeError(f"leg {name} runs on a CUDA card, and there is none")
-    with leg_env(spec["env"]), _recorded_steps(runner.pipeline) as steps:
+    with leg_env(spec["env"]), _recorded_steps(runner.pipeline) as steps, \
+            _counted(odometry.covariance, "plane_covariances") as cov_calls, \
+            _counted(runner.pipeline.tracker, "update") as updates:
         nn_cuda.LAUNCHES.clear()
+        hungarian.HOST_READS.clear()
         t0 = time.perf_counter()
         res = runner.replay(cfg, seq, hulls=spec["hulls"], progress=progress, device=spec["device"])
         seconds = time.perf_counter() - t0
         launches = dict(nn_cuda.LAUNCHES)
+        jv_host_reads = sum(hungarian.HOST_READS.values())
     flags = np.array([bool(k) for _, _, k in steps], bool)
     linz = sum(int(a) + int(b) + 1 for a, b, _ in steps)  # + the residual pass
-    # init: the scan's and the first keyframe's; then one per scan and insert
-    cov_calls = 2 + len(steps) + int(flags.sum())
     tot = res.profiler["total"]
     return dict(
         poses=res.poses, quats=res.quats, stamps=res.stamps, dropped=res.dropped_scans,
         ate=metrics.ate_rmse(res.poses, seq.gt_poses, res.stamps, seq.stamps),
         num_keyframes=res.num_keyframes, map_points=res.map_points, keyframe_added=flags,
         total_ms_per_scan=dict(mean=tot.mean, min=tot.min, max=tot.max, n=tot.n),
-        seconds=seconds, launches=launches, linearizations=linz, covariance_calls=cov_calls,
-        launch_check=launch_check(spec["path"], launches, linz, cov_calls),
+        seconds=seconds, launches=launches, linearizations=linz, covariance_calls=cov_calls[0],
+        tracker_updates=updates[0], jv_host_reads=jv_host_reads,
+        launch_check=launch_check(spec["path"], launches, linz, cov_calls[0],
+                                  updates[0] if card else None) and not (card and jv_host_reads),
     )
 
 
@@ -239,6 +279,7 @@ def report(legs: dict, goldens: dict, card: str, n_scans: int) -> dict:
         rec = {k: v[k] for k in ("num_keyframes", "map_points", "dropped", "total_ms_per_scan",
                                   "seconds", "launches", "linearizations", "covariance_calls",
                                   "launch_check")}
+        rec.update({k: v[k] for k in ("tracker_updates", "jv_host_reads") if k in v})
         rec["ate_vs_gt_m"] = float(v["ate"])
         like = JAX_LIKE.get(name)
         if like in goldens:

@@ -12,18 +12,20 @@ and reports, for the scans after the warm-up:
   ``tracker.update``, the static masks and the re-filter; then the
   keyframe update;
 - the CCL sweeps and host reads, and the JV assignment's host reads, per
-  scan;
+  scan; each hand-written kernel's launches per scan (its wrapper's count
+  in ``nn_cuda.LAUNCHES``), beside the tracker updates (one ``jv_solve``
+  each) and covariance calls (one ``regularize_plane`` each) per scan;
 - from ``torch.profiler`` over the same scans: device-busy time (the
   union of kernel intervals) against the wall time, i.e. the device's
   idle share, the number of kernel launches, the top kernels by device
-  time, and the hand-written NN kernels' time and share of busy time.
+  time, and the hand-written kernels' time and share of busy time.
 
     python tools/torch_profile_slice.py --scans 12 --warmup 2
     python tools/torch_profile_slice.py --backends dense   # DDLO_NN_IMPL/KNN_IMPL=pallas
     python tools/torch_profile_slice.py --plain
 
 Three replays of the same scans from a fresh state: plain (the wall
-time), staged (stage timing adds synchronizations, so its own total is
+time; ``--repeats N`` makes N of them and takes their median), staged (stage timing adds synchronizations, so its own total is
 printed beside the stages) and profiled (device-busy time only: the
 profiler inflates the host side).
 """
@@ -35,6 +37,7 @@ import collections
 import contextlib
 import json
 import os
+import statistics
 import sys
 import time
 
@@ -46,6 +49,8 @@ def main(argv=None) -> int:
     ap.add_argument("--scans", type=int, default=12)
     ap.add_argument("--warmup", type=int, default=2)
     ap.add_argument("--plain", action="store_true", help="plain DLO (no detection/tracking)")
+    ap.add_argument("--repeats", type=int, default=1,
+                    help="plain replays before the staged one (their median is the wall time)")
     ap.add_argument("--backends", choices=("default", "dense"), default="default",
                     help="dense: DDLO_NN_IMPL=pallas and DDLO_KNN_IMPL=pallas")
     args = ap.parse_args(argv)
@@ -75,11 +80,13 @@ def main(argv=None) -> int:
     stages = collections.defaultdict(float)
     counting = [False]
     depth = [0]  # time the outermost stage only (no double counting)
+    calls = collections.Counter()  # tracker updates and covariance calls
 
     def timed(mod, name, label):
         fn = getattr(mod, name)
 
         def wrapper(*a, **k):
+            calls[label if isinstance(label, str) else name] += 1
             if not counting[0] or depth[0]:
                 return fn(*a, **k)
             sync()
@@ -136,6 +143,7 @@ def main(argv=None) -> int:
         segmentation.SWEEPS.clear()
         hungarian.HOST_READS.clear()
         nn_cuda.LAUNCHES.clear()
+        calls.clear()
         ctx = torch.profiler.profile(activities=acts) if profiled else contextlib.nullcontext()
         t0 = time.perf_counter()
         with ctx as prof:
@@ -145,12 +153,15 @@ def main(argv=None) -> int:
         counting[0] = False
         return (time.perf_counter() - t0) * 1e3 / len(scans), prof
 
-    plain_ms, _ = replay()
+    plain_runs = [replay()[0] for _ in range(args.repeats)]
+    plain_ms = statistics.median(plain_runs)
     per_scan = lambda c: {k: v / len(scans) for k, v in sorted(c.items())}  # noqa: E731
     counters = dict(
         ccl_per_scan=per_scan(segmentation.SWEEPS),
         jv_host_reads_per_scan=per_scan(hungarian.HOST_READS),
-        nn_kernel_launches_per_scan=per_scan(nn_cuda.LAUNCHES),
+        kernel_launches_by_wrapper_per_scan=per_scan(nn_cuda.LAUNCHES),
+        tracker_updates_per_scan=calls["tracker_update"] / len(scans),
+        covariance_calls_per_scan=calls["covariances"] / len(scans),
     )
     staged_ms, _ = replay(staged=True)
     for m, n, fn in originals:
@@ -170,6 +181,7 @@ def main(argv=None) -> int:
         **counters,
         stage_ms_per_scan={k: v * 1e3 / len(scans) for k, v in sorted(stages.items())},
         wall_ms_per_scan=plain_ms,
+        wall_ms_per_scan_runs=plain_runs,
         staged_wall_ms_per_scan=staged_ms,
     )
     kernels = [
@@ -178,22 +190,22 @@ def main(argv=None) -> int:
     ]
     busy, _ = profiling.device_busy_us(prof)  # union of kernel intervals (us)
     by_name = collections.Counter()
-    calls = collections.Counter()
+    launches = collections.Counter()
     for e in kernels:
         by_name[e.name] += e.time_range.end - e.time_range.start
-        calls[e.name] += 1
-    nn_us = {k: sum(t for n, t in by_name.items() if k in n)
-             for k in ("nn1_kernel", "knn_classes_kernel")}
+        launches[e.name] += 1
+    own_us = {k: sum(t for n, t in by_name.items() if k in n)
+              for k in ("nn1_kernel", "knn_classes_kernel", "jv_solve_kernel", "plane_reg_kernel")}
     report.update(
-        # the hand-written NN kernels' device time and share of busy time
-        nn_kernels={k: dict(ms_per_scan=v / 1e3 / len(scans), share_of_busy=v / busy if busy else None)
-                    for k, v in nn_us.items()},
+        # the hand-written kernels' device time and share of busy time
+        hand_written_kernels={k: dict(ms_per_scan=v / 1e3 / len(scans), share_of_busy=v / busy if busy else None)
+                              for k, v in own_us.items()},
         device_busy_ms_per_scan=busy / 1e3 / len(scans),
         # busy time under the profiler, wall time of the plain replay
         device_idle_share=1.0 - busy / 1e3 / len(scans) / plain_ms,
         kernel_launches_per_scan=len(kernels) / len(scans),
         top_kernels=[
-            dict(name=n[:80], ms_per_scan=t / 1e3 / len(scans), calls_per_scan=calls[n] / len(scans))
+            dict(name=n[:80], ms_per_scan=t / 1e3 / len(scans), calls_per_scan=launches[n] / len(scans))
             for n, t in by_name.most_common(12)
         ],
     )
