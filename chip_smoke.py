@@ -10,8 +10,8 @@ Phases, in order; any failure exits non-zero and prints no result:
 1. Device: a CUDA card is required; prints its name and power limit
    (``nvidia-smi``) and checks that TF32 is off.
 2. Build: compiles ``csrc/nn1_sparse.cu``, ``csrc/knn_classes.cu``,
-   ``csrc/jv_solve.cu`` and ``csrc/plane_reg.cu`` with nvcc for sm_90a, one
-   nvcc each, all started together.
+   ``csrc/jv_solve.cu``, ``csrc/plane_reg.cu`` and ``csrc/graph_cond.cu``
+   with nvcc for sm_90a, one nvcc each, all started together.
 3. Every kernel against its plain PyTorch version, on the card, at the
    main paths' shapes, with inputs built from the benchmark sequence:
    sparse 1-NN (S2M 16,384 x 65,536 at r = 2 and 6, S2S 16,384 x 16,384
@@ -25,7 +25,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    of exactly one chunk, 128-row chunks whose count is no multiple of
    the kernel's batch, and a pruned call with one tile's list emptied.
    Pass: identical index and distance on every row, in radius or not;
-   no kernel spills registers; a lane-class call is one device operation.
+   no kernel spills registers; a lane-class call is two device operations
+   (the kernel and the add of its device count).
    Times (median of 20 calls): ``ms``, the device time of every operation
    one wrapper call puts on the card (``torch.profiler``: the 1-NN key
    fill and kernel, summed per call); ``kernel_ms``, the kernel's alone;
@@ -42,7 +43,12 @@ Phases, in order; any failure exits non-zero and prints no result:
    against ``regularize_plane_plain`` on the card and on the host, on the
    bench scan's window covariances, collinear, denormal-sized and FMA-tie
    rows; pass: every finite row bit-equal, one launch per call. Each
-   prints device ms, call ms, plain ms and its bound.
+   prints device ms, call ms, plain ms and its bound. The capture
+   driver's ``set_cond`` (``csrc/graph_cond.cu``): a nested WHILE loop and
+   an IF/ELSE branch captured into a graph and replayed on four inputs
+   (0 to 27 inner turns), each replay without any synchronization,
+   against the eager driver (``core/control.read_predicate``); pass: the
+   same turn counts and values.
 4. Plain DLO (``bench_config(dynamic_detection=False)``) on the first 16
    scans of ``steady_state_sequence(64)`` (rendered afresh, checked
    against the committed checksum) through ``pipeline.init_state`` /
@@ -159,6 +165,34 @@ Phases, in order; any failure exits non-zero and prints no result:
    ``gpu_exact``). The report is one ``accuracy`` JSON line
    (``--accuracy-out`` also writes it to a file).
 
+17. The step and the chunk as captured graphs: ``pipeline.step`` (a
+   graph replay) against ``pipeline.step_eager`` over ``bench_config()``
+   scans 1-16. Pass: every leaf of every state and output bit-equal
+   (NaN = NaN; poses, keyframe flags, detections and track states gate
+   the phase); every replay after the capture under
+   ``torch.cuda.set_sync_debug_mode("error")``; one ``cudaGraphLaunch``
+   per step (profiler) with ``nn1_sparse``, ``jv_solve``,
+   ``regularize_plane`` and ``set_cond`` running inside it;
+   ``step_chunk`` (K = 8) one graph launch, bit-equal to the graph steps;
+   the runner's watchdog on the graph path (a poisoned pose rolls back to
+   a state no later replay overwrote: the run equals a replay without
+   that scan). Prints per-scan wall of both steps (eager, graph, graph,
+   eager), device busy ms and idle share, device kernels and host launch
+   calls per scan, ``set_cond`` per scan and its device µs, each graph's
+   capture seconds and memory, the chunk's ms per scan.
+
+Phases 4-17 run the graph step (``pipeline.step`` on the card). A
+replay launches kernels without calling their wrappers, whose counts
+(``nn_cuda.LAUNCHES``) advance at capture, so those phases' launch
+checks count on the device (``main_path_counts``:
+``utils.profiling.device_counts``, the counts that
+``nn_cuda.run_kernel``, ``tracker.update``,
+``covariance.plane_covariances`` and ``segmentation.label_components``
+add on the device, in the graph users run; a graph's eager warm-up is
+not counted, only its replays). Phase 5 records the S2M
+problems of phases 13 and 15, and the tracker's cost matrices of phase
+3, from an eager run of its scans (a replay calls no Python).
+
 Each phase prints the wall time at which it starts (``at T s: phase N``)
 and a full run its total (``wall: T s``).
 
@@ -172,13 +206,15 @@ The line before the last is the kernel table as JSON (``nn1_sparse``'s
 launches summed over phases 4, 5, 9, 10, 11, 12, 14, 15 and 16;
 ``nn1_sparse_batched``'s from phases 13 and 15; ``knn_classes``' from
 phases 7, 15 and 16, phase 15's summed over both ranks; ``jv_solve``'s and
-``regularize_plane``'s from phases 5, 6, 9, 11, 15 and 16); the last line
+``regularize_plane``'s from phases 5, 6, 9, 11, 15 and 16; ``set_cond``'s
+from phase 17's graph run); the last line
 is ``{"ok": true, "device": {...}}`` (full runs only).
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import json
 import os
@@ -206,6 +242,7 @@ CHUNK_ATOL_M = 1e-6  # step_chunk against the same steps, one by one
 BATCH_T_ATOL_M, BATCH_R_ATOL = 1e-5, 1e-6  # batched_align against single aligns
 REPLAY_BATCH_ATOL_M = 2e-4  # tests/test_parallel.py:220-222's bar
 CHUNK_K, ALIGN_B, STREAMS, STREAM_SCANS = 8, 8, 4, 8
+GRAPH_SCANS, WATCHDOG_SCANS = 16, 7  # phase 17: graph vs eager steps; the watchdog's replay
 PT, PT_SCANS, PT_TIMEOUT_S = 2, 8, 480  # phase 15: ranks on the one card, scans, each rank's limit
 WARMUP_SCANS = 2
 DENSE_SCANS = 8
@@ -227,6 +264,10 @@ KERNELS = {
                      replaces="dynamic_direct_lidar_odometry_tpu/ops/hungarian.py:23"),
     "regularize_plane": dict(source=f"{PKG}/csrc/plane_reg.cu",
                              replaces="dynamic_direct_lidar_odometry_tpu/ops/covariance.py:213"),
+    # the capture driver's helper: the device-side test of a loop or branch
+    # (the JAX package's lax.while_loop / lax.cond, e.g. the LM loop)
+    "set_cond": dict(source=f"{PKG}/csrc/graph_cond.cu",
+                     replaces="dynamic_direct_lidar_odometry_tpu/ops/gicp.py:470"),
 }
 # the bound: FP32 work at the H100 SXM's non-tensor issue rate (67 TFLOP/s
 # counts an FMA as 2; the function rounds every operation, so none fuses:
@@ -339,12 +380,13 @@ def env(**kv):
                 os.environ[k] = v
 
 
-def run_slice(cfg, points, masks, stamps, device, timed: bool = False, keep=None):
+def run_slice(cfg, points, masks, stamps, device, timed: bool = False, keep=None, eager=False):
     """DDLO through the port's public entry points: init on scan 0, then
-    ``pipeline.step`` per scan. Returns poses (N,4,4) and per-scan
-    records; with ``timed`` each step is timed with CUDA events. ``keep``:
-    a scan index whose step inputs and tracker state before it are kept
-    in the record (for phase 6)."""
+    ``pipeline.step`` per scan (a graph replay; ``eager``:
+    ``pipeline.step_eager``). Returns poses (N,4,4) and per-scan records;
+    with ``timed`` each step is timed with CUDA events. ``keep``: a scan
+    index whose step inputs and tracker state before it are kept in the
+    record (for phase 6)."""
     import torch
 
     from dynamic_direct_lidar_odometry_tpu_torch import pipeline
@@ -358,7 +400,8 @@ def run_slice(cfg, points, masks, stamps, device, timed: bool = False, keep=None
         if timed:
             a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             a.record()
-        state, out = pipeline.step(cfg, state, points[i], masks[i], float(stamps[i]))
+        state, out = (pipeline.step_eager if eager else pipeline.step)(
+            cfg, state, points[i], masks[i], float(stamps[i]))
         if timed:
             b.record()
             b.synchronize()
@@ -463,7 +506,8 @@ def stress_inputs(query, s2m_target):
 
 PTXAS_NAMES = {"nn1_kernelILb0": "nn1_sparse", "nn1_kernelILb1": "nn1_dense",
                "knn_classes_kernelILb0": "knn_classes", "knn_classes_kernelILb1": "knn_classes_sparse",
-               "jv_solve_kernel": "jv_solve", "plane_reg_kernel": "regularize_plane"}
+               "jv_solve_kernel": "jv_solve", "plane_reg_kernel": "regularize_plane",
+               "set_cond_kernel": "set_cond"}
 
 
 def ptxas_report(log: str) -> dict:
@@ -806,24 +850,29 @@ def check_card_kernels(tag, launches, tracker_updates, covariance_calls, host_re
 
 
 @contextlib.contextmanager
-def card_kernel_counts(tag):
-    """Count the main path's tracker updates, covariance calls, the two
-    kernels' launches and the JV solve's host reads over the block (the
-    counts set to 0 on entry), then :func:`check_card_kernels` them.
-    Yields a dict that holds the launches afterwards."""
-    from dynamic_direct_lidar_odometry_tpu_torch.ops import covariance, hungarian, nn_cuda
-    from dynamic_direct_lidar_odometry_tpu_torch.tracking import tracker
+def main_path_counts(tag=None):
+    """The main path's kernel launches (by the wrappers' names), tracker
+    updates and covariance calls over the block, counted ON THE DEVICE
+    (``utils.profiling.device_counts``): the block's steps are graph
+    replays, which launch kernels without calling the wrappers, so the
+    wrappers' host counts (``nn_cuda.LAUNCHES``) advance only at capture.
+    The counts start at 0 on entry; a graph captured in the block leaves
+    its eager warm-up uncounted, so only the replays count. With ``tag``,
+    :func:`check_card_kernels` holds them. Yields a dict filled on exit:
+    launches by kernel name, ``tracker_updates``, ``covariance_calls``
+    and ``ccl_sweeps``."""
+    from dynamic_direct_lidar_odometry_tpu_torch.ops import hungarian
+    from dynamic_direct_lidar_odometry_tpu_torch.utils import profiling
 
     out = {}
-    for k in ("jv_solve", "regularize_plane"):
-        nn_cuda.LAUNCHES[k] = 0
     hungarian.HOST_READS.clear()
-    with recorded(tracker, ("update",)) as upd, recorded(covariance, ("plane_covariances",)) as cov:
+    with profiling.device_counts("cuda") as counts:
         yield out
-    launches = {k: nn_cuda.LAUNCHES[k] for k in ("jv_solve", "regularize_plane")}
-    out.update(launches)
-    check_card_kernels(tag, launches, upd["update"]["calls"], cov["plane_covariances"]["calls"],
-                       sum(hungarian.HOST_READS.values()))
+    out.update({k: 0 for k in KERNELS}, tracker_updates=0, covariance_calls=0, ccl_sweeps=0)
+    out.update(counts)
+    if tag is not None:
+        check_card_kernels(tag, out, out["tracker_updates"], out["covariance_calls"],
+                           sum(hungarian.HOST_READS.values()))
 
 
 def check_dense(name, query, target):
@@ -850,7 +899,8 @@ def check_dense(name, query, target):
 
 def check_classes(name, query, target, k, prune_radius=None, t_chunk=512, empty_tile=None):
     """The lane-class k-NN kernel (dense or pruned) against its plain
-    version: every row identical, and one device operation per call.
+    version: every row identical, and two device operations per call
+    (the kernel and its device count).
     ``empty_tile``: a query tile whose chunk list is emptied."""
     import torch
 
@@ -887,7 +937,8 @@ def check_classes(name, query, target, k, prune_radius=None, t_chunk=512, empty_
         cuda_ms(lambda: nn_cuda.knn_classes_reference(*args)),
         _cdist_tiles(q, t, q_tile, cols, k=k), k=k, prune_radius=prune_radius, t_chunk=t_chunk,
     )
-    check(rec["device_ops_per_call"] in (1, "not measured"),
+    # the kernel and the one-element add of its device count (utils.profiling.count)
+    check(rec["device_ops_per_call"] in (2, "not measured"),
           f"{kernel} {name}: {rec['device_ops_per_call']} device operations per call {rec['device_op_names']}")
     return rec
 
@@ -912,7 +963,7 @@ def compare_detection(inputs, cfg):
         st, out = tracker.update(cfg.tracking, tracks, det.objects, x["dt"])
         return interop.state_to_numpy(det), interop.state_to_numpy(st), interop.state_to_numpy(out)
 
-    with card_kernel_counts("detection card") as counts:
+    with main_path_counts("detection card") as counts:
         dg, sg, og = run("cuda")
     dc, sc, oc = run("cpu")
     flips = float(np.mean(dg.labels != dc.labels))
@@ -1076,17 +1127,15 @@ def replay_phase(cfg, seq, ref, card):
 
     from dynamic_direct_lidar_odometry_tpu_torch import runner
     from dynamic_direct_lidar_odometry_tpu_torch.mapping import mapper
-    from dynamic_direct_lidar_odometry_tpu_torch.ops import nn_cuda
 
     n = int(ref["n_scans"])
     sub = sub_sequence(seq, n)
-    nn_cuda.LAUNCHES.clear()
     with tempfile.TemporaryDirectory() as out:
         with recorded(runner.mapper, ("add_keyframe", "remove_boxes", "snapshot")) as calls, \
-                card_kernel_counts("replay") as card_launches:
+                main_path_counts("replay") as card_launches:
             res = runner.replay(cfg, sub, out_dir=out, evaluate=True, checkpoint_every=8,
                                 save_every=8, export_clouds_every=8)
-        launches = nn_cuda.LAUNCHES["nn1_sparse"]
+        launches = card_launches["nn1_sparse"]
         files = check_artifacts(out, res, cfg, n)
         resumed = runner.replay(cfg, sub, resume_from=os.path.join(out, "ckpt_000008.npz"))
     div = float(np.linalg.norm(res.poses - ref["poses"], axis=1).max())
@@ -1124,7 +1173,7 @@ def replay_phase(cfg, seq, ref, card):
         device_idle_share=1.0 - busy / (n - 1) / tot_bare.mean,
         resume_max_abs_m=resume_err, repeat_max_abs_m=repeat_err,
         final_history_boxes=int(valid.sum()), points_in_boxes=removed,
-        launches=dict(nn1_sparse=launches, **card_launches), **files,
+        launches=card_launches, **files,
     )
     print("replay " + json.dumps(rec), flush=True)
     check(div <= DIVERGENCE_BAR_M, f"replay poses diverge {div * 1e3:.3f} mm from JAX")
@@ -1160,7 +1209,6 @@ def cli_phase(seq, ref, card):
     from dynamic_direct_lidar_odometry_tpu_torch import cli, pipeline
     from dynamic_direct_lidar_odometry_tpu_torch.mapping import mapper
     from dynamic_direct_lidar_odometry_tpu_torch.odometry import keyframes as kf
-    from dynamic_direct_lidar_odometry_tpu_torch.ops import nn_cuda
     from dynamic_direct_lidar_odometry_tpu_torch.utils import checkpoint, metrics
 
     n = int(ref["n_scans"])
@@ -1171,11 +1219,10 @@ def cli_phase(seq, ref, card):
         sub.save(path)
         args = ["run", "--dataset", path, "--out", out, "--quiet", "--checkpoint-every", str(n - 1)]
         kf.BLOCKED_CALLS.update(convex=0, concave=0)
-        nn_cuda.LAUNCHES.clear()
         buf = io.StringIO()
-        with contextlib.redirect_stdout(buf):
+        with contextlib.redirect_stdout(buf), main_path_counts() as got:
             rc = cli.main(args)
-        launches, blocked = nn_cuda.LAUNCHES["nn1_sparse"], dict(kf.BLOCKED_CALLS)
+        launches, blocked = got["nn1_sparse"], dict(kf.BLOCKED_CALLS)
         text = buf.getvalue()
         check(rc == 0, f"cli run returned {rc}")
         tum = np.loadtxt(os.path.join(out, "trajectory_tum.txt"), ndmin=2)
@@ -1245,7 +1292,6 @@ def kantplatz_phase(card):
     import dataclasses
 
     from dynamic_direct_lidar_odometry_tpu_torch import config
-    from dynamic_direct_lidar_odometry_tpu_torch.ops import nn_cuda
     from dynamic_direct_lidar_odometry_tpu_torch.utils import sequence
 
     ref = np.load(GOLDEN_KANTPLATZ)
@@ -1256,10 +1302,9 @@ def kantplatz_phase(card):
           "the kantplatz scans differ from the reference sequence")
     cfg = dataclasses.replace(config.kantplatz_config(), capacity=config.capacity_for_scan(512, 512))
     render_s = time.perf_counter() - t0
-    nn_cuda.LAUNCHES.clear()
-    with card_kernel_counts("kantplatz") as card_launches:
+    with main_path_counts("kantplatz") as card_launches:
         poses, steps = run_slice(cfg, seq.points, seq.mask, seq.stamps, "cuda", timed=True)
-    launches = nn_cuda.LAUNCHES["nn1_sparse"]
+    launches = card_launches["nn1_sparse"]
     summary, div = slice_summary("kantplatz", poses, steps, ref, seq, n, card)
     busy, ops = device_busy_ms(lambda: run_slice(cfg, seq.points, seq.mask, seq.stamps, "cuda"))
     dets, jax_dets = [r["detections"] for r in steps], ref["detections"].tolist()
@@ -1276,7 +1321,7 @@ def kantplatz_phase(card):
         outside_window=[r["outside_window"] for r in steps],
         device_busy_ms_per_scan=busy / (n - 1), device_ops_per_scan=ops / (n - 1),
         device_idle_share=1.0 - busy / (n - 1) / mean_ms, mean_ms=mean_ms,
-        launches=dict(nn1_sparse=launches, **card_launches),
+        launches=card_launches,
     )
     print("kantplatz " + json.dumps(summary), flush=True)
     check(div <= DIVERGENCE_BAR_M, f"kantplatz poses diverge {div * 1e3:.3f} mm from JAX")
@@ -1293,7 +1338,6 @@ def chunk_phase(cfg, seq, dev):
     import torch
 
     from dynamic_direct_lidar_odometry_tpu_torch import pipeline
-    from dynamic_direct_lidar_odometry_tpu_torch.ops import nn_cuda
 
     K = CHUNK_K
     st0 = pipeline.init_state(cfg, seq.points[0], seq.mask[0], float(seq.stamps[0]), device=dev)
@@ -1305,17 +1349,18 @@ def chunk_phase(cfg, seq, dev):
         st, out = pipeline.step(cfg, st, pts[k], msk[k], ts[k])
         poses.append(out.odom.T)
         added.append(bool(out.keyframe_added))
-    nn_cuda.LAUNCHES.clear()
+    with main_path_counts() as got:
+        st_c, outs = pipeline.step_chunk(cfg, st0, pts, msk, ts)  # captured at this call
+    launches = got["nn1_sparse"]  # the one replay's: the capture's warm-up is not counted
     a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     a.record()
-    st_c, outs = pipeline.step_chunk(cfg, st0, pts, msk, ts)
+    pipeline.step_chunk(cfg, st0, pts, msk, ts)
     b.record()
     b.synchronize()
-    launches = nn_cuda.LAUNCHES["nn1_sparse"]
     err = float((outs.odom.T[:, :3, 3] - torch.stack(poses)[:, :3, 3]).abs().max())
     rec = dict(K=K, max_abs_m=err, chunk_ms_per_scan=a.elapsed_time(b) / K,
                keyframe_flags=outs.keyframe_added.tolist(), store_count=int(st_c.odom.store.count),
-               launches=dict(nn1_sparse=launches))
+               launches=got)
     print("step_chunk " + json.dumps(rec), flush=True)
     check(err <= CHUNK_ATOL_M, f"step_chunk moved a pose by {err} m")
     check(outs.keyframe_added.tolist() == added, "step_chunk keyframe flags differ")
@@ -1323,6 +1368,303 @@ def chunk_phase(cfg, seq, dev):
     check(tuple(outs.detections.labels.shape[:1]) == (K,), "step_chunk outputs not stacked")
     check(launches >= 3 * K, f"nn1_sparse launched {launches} times in {K} scans")
     return launches
+
+
+@contextlib.contextmanager
+def sync_free():
+    """Raise on any synchronizing CUDA call in the block
+    (``torch.cuda.set_sync_debug_mode("error")``)."""
+    import torch
+
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def _loop_fn(x0, n, m):
+    """A nested loop and a branch on the data (the LM's shape: an
+    iteration loop around a trial loop), for :func:`check_set_cond`."""
+    import torch
+
+    from dynamic_direct_lidar_odometry_tpu_torch.core import control
+
+    z = torch.zeros((), dtype=torch.int32, device=x0.device)
+    x, i, tot = x0.clone(), z.clone(), z.clone()
+
+    def outer(x, i, tot):
+        j = torch.zeros((), dtype=torch.int32, device=x.device)
+
+        def inner(x, j):
+            x.copy_(torch.sin(x) * 1.25)
+            j.add_(1)
+
+        control.while_loop(lambda x, j: j < m + i, inner, (x, j))
+        control.cond(x[0] > 0.5, lambda x: x.sub_(1.0), lambda x: x.mul_(0.5), (x,))
+        i.add_(1)
+        tot.add_(j)
+
+    control.while_loop(lambda x, i, tot: i < n, outer, (x, i, tot))
+    return x, i, tot
+
+
+def check_set_cond(dev):
+    """The capture driver's kernel (``csrc/graph_cond.cu``
+    ``ddlo_set_cond``) against its plain version, the eager driver's
+    predicate read (``core/control.read_predicate``): a nested WHILE loop
+    and an IF/ELSE branch captured once and replayed on several inputs
+    (0 turns to 27), each replay under ``sync_free``. ``max_abs_err``: the
+    largest difference in the loops' turn counts and carried values
+    (0 = the same decisions). Times: the kernel's device time inside a
+    replay (profiler), a replay's, and one eager predicate read (a host
+    round trip, host clock)."""
+    import torch
+
+    from dynamic_direct_lidar_odometry_tpu_torch.core import control
+
+    x0 = torch.linspace(-1.0, 1.0, 4096, device=dev)
+    graph, err, turns, keep = None, 0.0, [], None
+    for n_, m_ in ((0, 0), (1, 0), (3, 2), (6, 2)):
+        nt = torch.full((), n_, dtype=torch.int32, device=dev)
+        mt = torch.full((), m_, dtype=torch.int32, device=dev)
+        ref = _loop_fn(x0, nt, mt)
+        if graph is None:
+            graph = control.Graph(_loop_fn, (x0, nt, mt))
+            # allocated on the capturing thread after the capture: outside
+            # the graph's pool, and untouched by the replays below
+            keep = torch.full((1 << 16,), 7.0, device=dev)
+            kept_out_of_pool = not control.in_pool(keep, graph.pool)
+        torch.cuda.synchronize()
+        with sync_free():
+            out = graph(x0, nt, mt)
+        torch.cuda.synchronize()
+        err = max(err, float((out[0] - ref[0]).abs().max()), abs(int(out[1]) - int(ref[1])),
+                  abs(int(out[2]) - int(ref[2])))
+        turns.append(int(ref[2]))
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        graph(x0, nt, mt)
+        torch.cuda.synchronize()
+    sets = [e.time_range.end - e.time_range.start for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA and "set_cond_kernel" in e.name]
+    p = torch.ones((), dtype=torch.bool, device=dev)
+    reads = []
+    for _ in range(50):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        control.read_predicate(p)
+        reads.append((time.perf_counter() - t0) * 1e3)
+    kept = kept_out_of_pool and bool((keep == 7.0).all())
+    rec = dict(
+        kernel="set_cond", case="nested_while_if_else", inner_turns=turns, max_abs_err=err,
+        allocation_after_capture_outside_pool_and_kept=kept,
+        set_cond_per_replay=len(sets), timer="profiler",
+        ms=statistics.median(sets) / 1e3 if sets else None,
+        kernel_ms=statistics.median(sets) / 1e3 if sets else None,
+        call_ms=cuda_ms(lambda: graph(x0, nt, mt)), replay_graph_nodes_note="one replay of the whole loop",
+        plain_ms=statistics.median(reads), plain_timer="host clock, one predicate read",
+        bound_ms=1 / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+        note="one byte read per launch: latency-bound",
+    )
+    print("kernel check " + json.dumps(rec), flush=True)
+    check(err == 0.0, f"set_cond: the graph's loops decide differently from the eager driver ({err})")
+    check(bool(sets), "set_cond: the profiler shows no ddlo_set_cond inside a replay")
+    check(kept, "an allocation after the capture lies in the graph's pool or was overwritten")
+    return rec
+
+
+def _bits_differ(a, b) -> list:
+    """Paths of the leaves of two containers that differ in any bit (NaN =
+    NaN)."""
+    import torch
+
+    from dynamic_direct_lidar_odometry_tpu_torch.core import tree
+
+    out = []
+
+    def walk(x, y, path):
+        if x is None:
+            return
+        if tree.is_namedtuple(x):
+            for f in x._fields:
+                walk(getattr(x, f), getattr(y, f), f"{path}.{f}")
+        elif isinstance(x, (tuple, list)):
+            for i, (u, v) in enumerate(zip(x, y)):
+                walk(u, v, f"{path}[{i}]")
+        elif isinstance(x, torch.Tensor):
+            same = x.shape == y.shape and x.dtype == y.dtype and bool(
+                ((x == y) | (x.isnan() & y.isnan()) if x.is_floating_point() else (x == y)).all())
+            if not same:
+                out.append(path)
+
+    walk(a, b, "")
+    return out
+
+
+def graph_phase(cfg, seq, card):
+    """Phase 17: ``pipeline.step`` as a captured graph against
+    ``pipeline.step_eager`` over bench scans 1-16."""
+    import torch
+
+    from dynamic_direct_lidar_odometry_tpu_torch import pipeline, runner
+    from dynamic_direct_lidar_odometry_tpu_torch.core import control, tree
+    from dynamic_direct_lidar_odometry_tpu_torch.io.dataset import ScanSequence
+    from dynamic_direct_lidar_odometry_tpu_torch.ops import hungarian, segmentation
+    from dynamic_direct_lidar_odometry_tpu_torch.utils import profiling
+
+    dev = torch.device("cuda", 0)
+    n = GRAPH_SCANS
+    pts = [torch.as_tensor(seq.points[i], device=dev) for i in range(n + 1)]
+    msk = [torch.as_tensor(seq.mask[i], device=dev) for i in range(n + 1)]
+    ts = [torch.full((), float(seq.stamps[i]), dtype=torch.float32, device=dev) for i in range(n + 1)]
+
+    def run(step, guard=False):
+        """init on scan 0, then scans 1-n; per scan the host clock around a
+        synchronized step. ``guard``: every step after the first (the
+        capture) under ``sync_free``."""
+        st = pipeline.init_state(cfg, seq.points[0], seq.mask[0], float(seq.stamps[0]), device=dev)
+        outs, states, ms = [], [], []
+        for i in range(1, n + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with sync_free() if guard and i > 1 else contextlib.nullcontext():
+                st, out = step(cfg, st, pts[i], msk[i], ts[i])
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            outs.append(out)
+            states.append(st)
+        return outs, states, ms
+
+    # the graph run, counted on the device; replays under sync_free. The
+    # graph is captured afresh (its capture seconds and pool are reported)
+    pipeline.clear_graphs()
+    reads0 = (sum(control.PREDICATE_READS.values()), segmentation.SWEEPS["host_reads"])
+    with main_path_counts("graph") as counted:
+        g_outs, g_states, g_ms = run(pipeline.step, guard=True)
+        stats = pipeline.graph_stats()
+    e_outs, e_states, e_ms = run(pipeline.step_eager)
+    differ = {}
+    for k in range(n):
+        d = _bits_differ((g_states[k], g_outs[k]), (e_states[k], e_outs[k]))
+        if d:
+            differ[k + 1] = d
+    gated = [p for ps in differ.values() for p in ps
+             if p.startswith(("[1].odom.T", "[1].odom.pose", "[1].odom.rotq", "[1].keyframe_added",
+                              "[1].detections", "[0].tracks", "[1].tracks"))]
+
+    # per-scan wall, eager / graph / graph / eager (the graph's first call captures)
+    walls = {"eager": [], "graph": []}
+    for kind in ("eager", "graph", "graph", "eager"):
+        walls[kind] += run(pipeline.step if kind == "graph" else pipeline.step_eager)[2][1:]
+    wall = {k: statistics.median(v) for k, v in walls.items()}
+
+    def profile(step, k0=1, k=8):
+        st = e_states[k0 - 1]
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for i in range(k0 + 1, k0 + 1 + k):
+                st, _ = step(cfg, st, pts[i], msk[i], ts[i])
+            torch.cuda.synchronize()
+        busy, ops = profiling.device_busy_us(prof)
+        names = collections.Counter(e.name for e in prof.events()
+                                    if e.device_type == torch.autograd.DeviceType.CUDA)
+        api = collections.Counter(e.name for e in prof.events()
+                                  if e.name in ("cudaLaunchKernel", "cudaGraphLaunch", "cuLaunchKernel",
+                                                "cudaLaunchKernelExC", "cuLaunchKernelEx"))
+        set_us = [e.time_range.end - e.time_range.start for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA and "set_cond_kernel" in e.name]
+
+        def per_scan(pat):
+            return sum(v for nm, v in names.items() if pat in nm) / k
+
+        return dict(
+            device_busy_ms_per_scan=busy / 1e3 / k,
+            device_ops_per_scan=ops / k, host_launch_calls_per_scan={a: v / k for a, v in api.items()},
+            nn1_sparse_per_scan=per_scan("nn1_kernel<false>"), jv_solve_per_scan=per_scan("jv_solve_kernel"),
+            plane_reg_per_scan=per_scan("plane_reg_kernel"), set_cond_per_scan=len(set_us) / k,
+            set_cond_us_mean=statistics.mean(set_us) if set_us else None,
+        )
+
+    prof_graph, prof_eager = profile(pipeline.step), profile(pipeline.step_eager)
+    for kind, pr in (("graph", prof_graph), ("eager", prof_eager)):
+        pr["device_idle_share"] = 1.0 - pr["device_busy_ms_per_scan"] / wall[kind]
+
+    # step_chunk at K = CHUNK_K: one graph, one launch per chunk, equal to the graph steps
+    st0 = pipeline.init_state(cfg, seq.points[0], seq.mask[0], float(seq.stamps[0]), device=dev)
+    K = CHUNK_K
+    cp, cm = torch.stack(pts[1:K + 1]), torch.stack(msk[1:K + 1])
+    cts = torch.stack(ts[1:K + 1])
+    st_c, outs_c = pipeline.step_chunk(cfg, st0, cp, cm, cts)  # captured here
+    chunk_differ = _bits_differ((st_c, outs_c), (g_states[K - 1], tree.stack(g_outs[:K])))
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        with sync_free():
+            pipeline.step_chunk(cfg, st0, cp, cm, cts)
+        torch.cuda.synchronize()
+    graph_launches = sum(1 for e in prof.events() if e.name == "cudaGraphLaunch")
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    chunk_ms = []
+    for _ in range(3):
+        a.record()
+        pipeline.step_chunk(cfg, st0, cp, cm, cts)
+        b.record()
+        b.synchronize()
+        chunk_ms.append(a.elapsed_time(b) / K)
+
+    # the runner's watchdog on the graph path: a poisoned pose rolls back to
+    # the state before it, which a later replay must not have overwritten;
+    # the run equals a replay of the sequence without that scan
+    m, bad = WATCHDOG_SCANS, 3
+    sub = sub_sequence(seq, m)
+    real_step, calls = runner.pipeline.step, {"n": 0}
+
+    def poisoned(cfg_, state, p, mk, t, hull_masks=None, **kw):
+        calls["n"] += 1
+        state2, out = real_step(cfg_, state, p, mk, t, hull_masks, **kw)
+        if calls["n"] == bad:
+            T = out.odom.T.clone()
+            T[0, 3] = float("nan")
+            out = out._replace(odom=out.odom._replace(T=T))
+        return state2, out
+
+    runner.pipeline.step = poisoned
+    try:
+        res_w = runner.replay(cfg, sub)
+    finally:
+        runner.pipeline.step = real_step
+    keep = [i for i in range(m) if i != bad]
+    res_r = runner.replay(cfg, ScanSequence(points=sub.points[keep], mask=sub.mask[keep],
+                                            stamps=sub.stamps[keep], H=sub.H, W=sub.W,
+                                            gt_poses=sub.gt_poses[keep]))
+    watchdog_equal = bool(np.array_equal(res_w.poses, res_r.poses))
+
+    host_reads = (sum(control.PREDICATE_READS.values()) - reads0[0],
+                  segmentation.SWEEPS["host_reads"] - reads0[1])
+    rec = dict(
+        card=card, scans=n, graph_vs_eager_bits_differ=differ, gated_fields_differ=gated,
+        wall_ms_per_scan=wall, wall_ms_first_graph_call=g_ms[0], wall_ms_per_scan_runs=walls,
+        profile_graph=prof_graph, profile_eager=prof_eager,
+        graphs=stats, launches=counted, jv_host_reads=sum(hungarian.HOST_READS.values()),
+        predicate_and_ccl_reads_incl_warmup=host_reads,
+        chunk=dict(K=K, bits_differ=chunk_differ, graph_launches_per_chunk=graph_launches,
+                   ms_per_scan=chunk_ms),
+        watchdog=dict(scans=m, dropped=res_w.dropped_scans, poses_equal_without_the_scan=watchdog_equal,
+                      steps_called=calls["n"]),
+    )
+    print("graph " + json.dumps(rec), flush=True)
+    check(not gated, f"graph step differs from step_eager in {gated}")
+    check(prof_graph["nn1_sparse_per_scan"] >= 3 and prof_graph["jv_solve_per_scan"] >= 1
+          and prof_graph["plane_reg_per_scan"] >= 1 and prof_graph["set_cond_per_scan"] >= 1,
+          f"the kernels did not run inside the replays: {prof_graph}")
+    check(prof_graph["host_launch_calls_per_scan"].get("cudaGraphLaunch", 0) == 1,
+          f"a graph step is not one graph launch: {prof_graph['host_launch_calls_per_scan']}")
+    check(not chunk_differ, f"step_chunk differs from the graph steps in {chunk_differ}")
+    check(graph_launches == 1, f"step_chunk made {graph_launches} graph launches")
+    check(res_w.dropped_scans == 1 and watchdog_equal and calls["n"] == m,
+          f"the watchdog on the graph path: {rec['watchdog']}")
+    return rec
 
 
 @contextlib.contextmanager
@@ -1692,12 +2034,12 @@ def accuracy_phase(seq, card, out_path=None):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Smoke check of the PyTorch port on one GPU")
-    ap.add_argument("--phases", default=",".join(str(p) for p in range(1, 17)),
+    ap.add_argument("--phases", default=",".join(str(p) for p in range(1, 18)),
                     help="comma-separated subset; the check is the full run")
     ap.add_argument("--accuracy-out", default=None, help="also write phase 16's report to this file")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
-    full = phases == set(range(1, 17))
+    full = phases == set(range(1, 18))
     t_start = time.perf_counter()
 
     import torch
@@ -1746,7 +2088,7 @@ def main(argv=None) -> int:
     cfg_dlo = config.bench_config(dynamic_detection=False)
     cfg = config.bench_config()
     seq = None
-    if phases & (set(range(3, 17)) - {11}):
+    if phases & (set(range(3, 18)) - {11}):
         t0 = time.perf_counter()
         seq = sequence.steady_state_sequence(64)
         print(f"sequence: 64 scans {seq.H}x{seq.W} in {time.perf_counter() - t0:.1f} s (host)", flush=True)
@@ -1810,6 +2152,7 @@ def main(argv=None) -> int:
             records.setdefault(r["kernel"], []).append(r)
         records["regularize_plane"] = [check_regularize(query, k)]
         records["jv_solve"] = [check_jv(jv_cases(dev), "random_ties_big_nan_N32_64_128")]
+        records["set_cond"] = [check_set_cond(dev)]
 
     launches = {}
     sparse_launches = {}  # nn1_sparse per phase that runs it, each read right after it
@@ -1817,9 +2160,8 @@ def main(argv=None) -> int:
     if 4 in phases:
         # ---- 4. plain DLO ----
         print(f"at {time.perf_counter() - t_start:.1f} s: phase 4", flush=True)
-        nn_cuda.LAUNCHES.clear()
-        poses, steps = run_slice(cfg_dlo, seq.points[:n], seq.mask[:n], seq.stamps[:n], dev, timed=True)
-        got = dict(nn_cuda.LAUNCHES)
+        with main_path_counts() as got:
+            poses, steps = run_slice(cfg_dlo, seq.points[:n], seq.mask[:n], seq.stamps[:n], dev, timed=True)
         linz = sum(r["s2s_iterations"] + r["s2m_iterations"] + 1 for r in steps)
         summary, div = slice_summary("plain DLO", poses, steps, ref_dlo, seq, n, card)
         print("slice " + json.dumps(dict(summary, launches=got, linearizations=linz)), flush=True)
@@ -1833,27 +2175,30 @@ def main(argv=None) -> int:
     if phases & {5, 6, 13, 15}:
         # ---- 5. full DDLO, default backends ----
         print(f"at {time.perf_counter() - t_start:.1f} s: phase 5", flush=True)
-        nn_cuda.LAUNCHES.clear()
         segmentation.SWEEPS.clear()
-        hungarian.HOST_READS.clear()
-        with s2m_calls(ALIGN_B) as s2m, recorded_calls(hungarian, "solve") as solves, \
-                card_kernel_counts("ddlo") as card_launches[5]:
+        with main_path_counts("ddlo") as card_launches[5]:
             poses, steps = run_slice(cfg, seq.points[:n], seq.mask[:n], seq.stamps[:n], dev,
                                      timed=True, keep=keep)
-        sparse_launches[5] = nn_cuda.LAUNCHES["nn1_sparse"]
+        sparse_launches[5] = card_launches[5]["nn1_sparse"]
+        ccl_sweeps = card_launches[5]["ccl_sweeps"]
+        # the S2M registrations (phase 13) and the tracker's cost matrices
+        # (phase 3) are recorded from an eager run of the same scans: a
+        # graph replay calls no Python
+        with s2m_calls(ALIGN_B) as s2m, recorded_calls(hungarian, "solve") as solves:
+            eager_poses, _ = run_slice(cfg, seq.points[:n], seq.mask[:n], seq.stamps[:n], dev, eager=True)
         linz = sum(r["s2s_iterations"] + r["s2m_iterations"] + 1 for r in steps)
         inputs = steps[keep - 1].pop("inputs")
         summary, div = slice_summary("DDLO", poses, steps, ref_ddlo, seq, n, card)
         dets = [r["detections"] for r in steps]
         jax_dets = ref_ddlo["detections"].tolist()
         summary.update(
-            launches=dict(nn_cuda.LAUNCHES), linearizations=linz,
+            launches=card_launches[5], linearizations=linz,
             detections=dets, detections_jax=jax_dets,
             track_status=[r["status"] for r in steps],
             track_status_jax=ref_ddlo["track_status"].tolist(),
-            ccl_sweeps=segmentation.SWEEPS["sweeps"],
-            ccl_host_reads=segmentation.SWEEPS["host_reads"],
-            jv_host_reads=dict(hungarian.HOST_READS),
+            ccl_sweeps=ccl_sweeps,
+            ccl_host_reads_graph_warmup=segmentation.SWEEPS["host_reads"],
+            eager_poses_equal=bool(np.array_equal(eager_poses, poses)),
         )
         print("ddlo " + json.dumps(summary), flush=True)
         check(summary["keyframe_flags_match_jax"], "DDLO keyframe flags differ from JAX")
@@ -1883,11 +2228,9 @@ def main(argv=None) -> int:
     if 7 in phases:
         # ---- 7. full DDLO, dense backends ----
         print(f"at {time.perf_counter() - t_start:.1f} s: phase 7", flush=True)
-        with env(DDLO_NN_IMPL="pallas", DDLO_KNN_IMPL="pallas"):
-            nn_cuda.LAUNCHES.clear()
+        with env(DDLO_NN_IMPL="pallas", DDLO_KNN_IMPL="pallas"), main_path_counts() as got:
             m = DENSE_SCANS
             poses, steps = run_slice(cfg, seq.points[:m], seq.mask[:m], seq.stamps[:m], dev, timed=True)
-            got = dict(nn_cuda.LAUNCHES)
         linz = sum(r["s2s_iterations"] + r["s2m_iterations"] + 1 for r in steps)
         cov_calls = 2 + len(steps) + sum(r["keyframe_added"] for r in steps)
         summary, div = slice_summary("dense DDLO", poses, steps, ref_ddlo, seq, m, card)
@@ -1963,6 +2306,10 @@ def main(argv=None) -> int:
         sparse_launches[16] = acc_launches["nn1_sparse"]
         card_launches[16] = {k: acc_launches[k] for k in ("jv_solve", "regularize_plane")}
         launches["knn_classes"] = launches.get("knn_classes", 0) + acc_launches["knn_classes"]
+    if 17 in phases:
+        # ---- 17. the step and the chunk as captured graphs ----
+        print(f"at {time.perf_counter() - t_start:.1f} s: phase 17", flush=True)
+        launches["set_cond"] = graph_phase(cfg, seq, card)["launches"]["set_cond"]
     launches["nn1_sparse"] = sum(sparse_launches.values())
     for k in ("jv_solve", "regularize_plane"):
         launches[k] = sum(v.get(k, 0) for v in card_launches.values())

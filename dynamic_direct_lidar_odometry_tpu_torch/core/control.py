@@ -1,0 +1,336 @@
+"""The port's ``lax.while_loop`` and ``lax.cond``, and the captured graph
+that runs them on the card (the port's counterpart of ``jax.jit``).
+
+A loop's or branch's carry is a tuple of tensors allocated BEFORE it; the
+body updates the carry in place (``copy_``, ``index_copy_``,
+``masked_fill_``) and never replaces a tensor of it; a predicate is a 0-d
+bool tensor computed on the device. One body serves two drivers:
+
+- the eager driver (the CPU, and the card outside a capture) runs the
+  body and reads only the predicate between turns
+  (:func:`read_predicate`), exactly where a conditional node decides;
+- the capture driver (the card inside :func:`capture`) adds a CUDA
+  conditional node to the graph being captured, a WHILE for a loop and
+  an IF for a branch (``cond`` with a false branch is two IFs, on the
+  predicate and on its negation), captures the body into the node's body
+  graph on a stream of its own, and sets the node's handle on the device
+  (``csrc/graph_cond.cu``). Nothing is read on the host.
+
+During a capture every allocation of the capturing thread goes to the
+graph's private pool, on the capture stream and on the body streams
+alike. A tensor allocated inside a body never outlives the body: results
+leave a body only through the carry.
+
+:class:`Graph` captures a function once and replays it on new inputs:
+the inputs are copied into its static buffers and the outputs cloned out
+of it, so a returned tensor never aliases memory that the next replay
+writes. A capture or conditional-node failure raises; nothing falls back
+to the eager driver.
+"""
+
+from __future__ import annotations
+
+import collections
+import contextlib
+import ctypes
+import threading
+import time
+from typing import Any, Callable, List, Sequence
+
+import torch
+
+from dynamic_direct_lidar_odometry_tpu_torch.core import tree
+from dynamic_direct_lidar_odometry_tpu_torch.utils import profiling
+
+# host reads of the eager driver, by construct ("while", "cond"); the
+# capture driver makes none
+PREDICATE_READS: collections.Counter = collections.Counter()
+# nesting of bodies a capture supports (a body stream per level)
+MAX_DEPTH = 4
+
+_TLS = threading.local()
+
+
+def read_predicate(pred: torch.Tensor, kind: str = "while") -> bool:
+    """The eager driver's one host read: the predicate, between turns of
+    a loop or before a branch."""
+    PREDICATE_READS[kind] += 1
+    return bool(pred)
+
+
+def _lib():
+    from dynamic_direct_lidar_odometry_tpu_torch.ops import nn_cuda
+
+    return nn_cuda.build()["graph_cond"].lib
+
+
+def _check(err: int, what: str) -> None:
+    if err == -1:
+        raise RuntimeError(f"{what}: the stream is not capturing")
+    if err != 0:
+        raise RuntimeError(f"{what} failed: CUDA error {err}")
+
+
+class _Capture:
+    """The capture under way on this thread: a body stream per nesting
+    level, and the level being captured."""
+
+    def __init__(self, device: torch.device):
+        self.streams = streams(device)[1:]
+        self.depth = 0
+
+
+def _active(t: torch.Tensor):
+    """The capture under way if ``t`` is on the card and its stream is
+    capturing; None for the eager driver. A capture that
+    :func:`capture` did not begin raises."""
+    if not t.is_cuda or not torch.cuda.is_current_stream_capturing():
+        return None
+    cap = getattr(_TLS, "capture", None)
+    if cap is None:
+        raise RuntimeError(
+            "control: a loop or branch inside a CUDA graph capture that "
+            "control.capture did not begin"
+        )
+    return cap
+
+
+def _node(is_while: bool, pred: torch.Tensor):
+    """Add a conditional node on the current (capturing) stream after a
+    device write of its handle from ``pred``; returns (handle, body)."""
+    lib = _lib()
+    stream = torch.cuda.current_stream().cuda_stream
+    handle, body = ctypes.c_ulonglong(0), ctypes.c_void_p(0)
+    _check(lib.ddlo_cond_handle(stream, ctypes.byref(handle)), "cudaGraphConditionalHandleCreate")
+    _set_cond(handle.value, pred)
+    _check(lib.ddlo_cond_node(stream, int(is_while), handle.value, ctypes.byref(body)),
+           "cudaGraphAddNode (conditional)")
+    return handle.value, body.value
+
+
+def _set_cond(handle: int, pred: torch.Tensor) -> None:
+    """Launch ``ddlo_set_cond``: the handle := ``pred``, on the device."""
+    from dynamic_direct_lidar_odometry_tpu_torch.ops import nn_cuda
+
+    pred = pred.reshape(()).to(torch.bool).contiguous()
+    nn_cuda.run_kernel(_lib().ddlo_set_cond, "set_cond", pred, handle)
+
+
+@contextlib.contextmanager
+def _body(cap: _Capture, body: int):
+    """Capture the block's work into a conditional node's body graph, on
+    the body stream of the next nesting level."""
+    if cap.depth >= MAX_DEPTH:
+        raise RuntimeError(f"control: bodies nested deeper than {MAX_DEPTH}")
+    stream = cap.streams[cap.depth]
+    lib = _lib()
+    _check(lib.ddlo_capture_into(stream.cuda_stream, body), "cudaStreamBeginCaptureToGraph")
+    cap.depth += 1
+    try:
+        with torch.cuda.stream(stream):
+            yield
+    finally:
+        cap.depth -= 1
+        err = lib.ddlo_capture_close(stream.cuda_stream)
+    _check(err, "cudaStreamEndCapture (body)")
+
+
+def while_loop(cond_fn: Callable[..., torch.Tensor], body_fn: Callable[..., None],
+               carry: Sequence[torch.Tensor]):
+    """``lax.while_loop`` in place: while ``cond_fn(*carry)`` (a 0-d bool
+    tensor) holds, ``body_fn(*carry)`` updates the carry. Returns the
+    carry."""
+    carry = tuple(carry)
+    pred = cond_fn(*carry)
+    cap = _active(pred)
+    if cap is None:
+        while read_predicate(pred, "while"):
+            body_fn(*carry)
+            pred = cond_fn(*carry)
+        return carry
+    handle, body = _node(True, pred)
+    with _body(cap, body):
+        body_fn(*carry)
+        _set_cond(handle, cond_fn(*carry))
+    return carry
+
+
+def cond(pred: torch.Tensor, true_fn: Callable[..., None],
+         false_fn: Callable[..., None] | None, carry: Sequence[torch.Tensor] = ()):
+    """``lax.cond`` in place: ``true_fn(*carry)`` if ``pred`` (a 0-d bool
+    tensor) holds, else ``false_fn(*carry)`` (None: nothing). Returns the
+    carry."""
+    carry = tuple(carry)
+    cap = _active(pred)
+    if cap is None:
+        if read_predicate(pred, "cond"):
+            true_fn(*carry)
+        elif false_fn is not None:
+            false_fn(*carry)
+        return carry
+    # the predicate is fixed before either branch writes the carry
+    p = pred.reshape(()).to(torch.bool).clone()
+    handle, body = _node(False, p)
+    with _body(cap, body):
+        true_fn(*carry)
+    if false_fn is not None:
+        handle, body = _node(False, torch.logical_not(p))
+        with _body(cap, body):
+            false_fn(*carry)
+    return carry
+
+
+_STREAMS: dict = {}
+
+
+def streams(device: torch.device) -> List[torch.cuda.ExternalStream]:
+    """This process's own streams on ``device`` (created by
+    ``csrc/graph_cond.cu``, never drawn from torch's pool, whose streams
+    other code also takes): [0] captures a graph, [1 + d] the bodies at
+    nesting level d."""
+    key = device.index if device.index is not None else torch.cuda.current_device()
+    if key not in _STREAMS:
+        lib = _lib()
+        made = []
+        with torch.cuda.device(key):
+            for _ in range(MAX_DEPTH + 1):
+                ptr = ctypes.c_void_p(0)
+                _check(lib.ddlo_stream_create(ctypes.byref(ptr)), "cudaStreamCreate")
+                made.append(torch.cuda.ExternalStream(ptr.value, device=torch.device("cuda", key)))
+        # torch gives each (cuBLAS handle, stream) its workspace at the
+        # stream's first cuBLAS call; made inside a conditional body, that
+        # allocation breaks the graph (its instantiation crashes). So each
+        # stream makes its first calls here, outside any capture.
+        for s in made:
+            with torch.cuda.stream(s):
+                a = torch.ones((8, 8), device=s.device)
+                v = torch.ones(8, device=s.device)
+                torch.matmul(a, a), torch.bmm(a[None], a[None]), torch.dot(v, v)
+                torch.addmm(v, a, a)
+        torch.cuda.synchronize(key)
+        _STREAMS[key] = made
+    return _STREAMS[key]
+
+
+def _allocate_thread_to_pool(device_index: int, pool) -> None:
+    """Route every allocation of this thread to ``pool`` (torch's capture
+    routes only the capture stream's, by its capture id)."""
+    torch._C._cuda_endAllocateToPool(device_index, pool)
+    torch._C._cuda_beginAllocateCurrentThreadToPool(device_index, pool)
+
+
+@contextlib.contextmanager
+def capture(graph: torch.cuda.CUDAGraph, device: torch.device):
+    """Capture the block's work into ``graph``, on this process's capture
+    stream of ``device`` (:func:`streams`), with
+    ``capture_error_mode="thread_local"`` (another thread's CUDA work
+    does not void it) and conditional nodes for :func:`while_loop` and
+    :func:`cond`. Yields the graph's memory pool."""
+    if getattr(_TLS, "capture", None) is not None:
+        raise RuntimeError("control.capture: a capture is already under way on this thread")
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    device = torch.device("cuda", idx)
+    cap = _Capture(device)
+    stream = streams(device)[0]
+    profiling.counts_buffer(device)  # made before the capture, which holds its address
+    torch.cuda.synchronize(device)
+    pool = torch.cuda.graph_pool_handle()
+    with torch.cuda.stream(stream):
+        graph.capture_begin(pool=pool, capture_error_mode="thread_local")
+        _TLS.capture = cap
+        try:
+            _allocate_thread_to_pool(idx, pool)
+            yield pool
+        finally:
+            _TLS.capture = None
+            graph.capture_end()
+            # the reference _allocate_thread_to_pool took on the pool
+            torch._C._cuda_releasePool(idx, pool)
+    _check_pool_routing_ended(device, pool)
+
+
+def in_pool(t: torch.Tensor, pool) -> bool:
+    """Whether ``t``'s memory lies in a segment of the allocator pool
+    ``pool`` (a ``torch.cuda.graph_pool_handle()``)."""
+    ptr = t.data_ptr()
+    for seg in torch.cuda.memory_snapshot():
+        if seg["address"] <= ptr < seg["address"] + seg["total_size"]:  # one address space
+            return tuple(seg["segment_pool_id"]) == tuple(pool)
+    raise RuntimeError("control: a tensor outside every allocator segment")
+
+
+def _check_pool_routing_ended(device: torch.device, pool) -> None:
+    """The routing of this thread's allocations to the graph's pool rests
+    on torch's private entry points (:func:`_allocate_thread_to_pool`)
+    and must end with the capture: an allocation now that came from the
+    pool would be overwritten by the graph's replays. Raise if it does."""
+    probe = torch.empty(1, device=device)
+    if in_pool(probe, pool):
+        raise RuntimeError(
+            f"control.capture: allocations on this thread still go to the graph's pool "
+            f"after the capture (torch {torch.__version__})"
+        )
+
+
+class Graph:
+    """``fn(*inputs)`` captured once on the card and replayed on new inputs
+    of the same structure, shapes and types.
+
+    Construction copies ``inputs`` into static buffers, runs ``fn`` once
+    eagerly on the capture stream (the warm-up: kernels built, cuBLAS's
+    workspace set, caches filled), then captures it. The warm-up leaves
+    the device counts (``utils.profiling.count``) as it found them: only
+    replays count. :meth:`__call__` copies new inputs into the static
+    buffers, replays, and returns a clone of the outputs."""
+
+    def __init__(self, fn: Callable[..., Any], inputs: Sequence[Any]):
+        first = next(x for x in _leaves(inputs) if isinstance(x, torch.Tensor))
+        self.device = first.device
+        self.stream = streams(self.device)[0]
+        self.static_in = tree.map_leaves(_clone, tuple(inputs))
+        cur = torch.cuda.current_stream(self.device)
+        self.stream.wait_stream(cur)
+        counts = profiling.counts_buffer(self.device)
+        with torch.cuda.stream(self.stream):
+            before = counts.clone()
+            fn(*self.static_in)  # warm-up, eager
+            counts.copy_(before)
+        cur.wait_stream(self.stream)
+        self.graph = torch.cuda.CUDAGraph()
+        before = torch.cuda.memory_reserved(self.device)
+        t0 = time.perf_counter()
+        with capture(self.graph, self.device) as self.pool:
+            self.static_out = fn(*self.static_in)
+        torch.cuda.synchronize(self.device)
+        self.capture_s = time.perf_counter() - t0
+        self.pool_bytes = torch.cuda.memory_reserved(self.device) - before
+        self.replays = 0
+
+    def __call__(self, *inputs: Any) -> Any:
+        tree.map_leaves(_copy_in, self.static_in, tuple(inputs))
+        self.graph.replay()
+        self.replays += 1
+        return tree.map_leaves(_clone, self.static_out)
+
+
+def _leaves(x):
+    out = []
+    tree.map_leaves(lambda leaf: out.append(leaf), x)
+    return out
+
+
+def _clone(x):
+    return x.clone() if isinstance(x, torch.Tensor) else x
+
+
+def _copy_in(dst, src):
+    if isinstance(dst, torch.Tensor):
+        if not isinstance(src, torch.Tensor) or src.shape != dst.shape or src.dtype != dst.dtype:
+            raise ValueError(
+                f"Graph: input {getattr(src, 'shape', src)} does not match the "
+                f"captured {tuple(dst.shape)} {dst.dtype}"
+            )
+        dst.copy_(src)
+    elif dst != src:
+        raise ValueError(f"Graph: a static input changed ({dst!r} -> {src!r})")
+    return dst

@@ -13,7 +13,9 @@ the host (scipy) oracle and the ``hulls="exact"`` replay mode.
 
 :func:`add_keyframe` returns a new store and leaves the caller's intact,
 as the JAX package does: the replay keeps the state of the scan before
-for its one-scan-late bookkeeping, checkpoints and NaN rollback.
+for its one-scan-late bookkeeping, checkpoints and NaN rollback. The
+slot, the eviction at capacity and the submap's block offsets are picked
+on the device (no host read; ``core/control.cond`` for the eviction).
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
+from dynamic_direct_lidar_odometry_tpu_torch.core import control
 from dynamic_direct_lidar_odometry_tpu_torch.core import device as device_mod
 from dynamic_direct_lidar_odometry_tpu_torch.core.cloud import SENTINEL
 
@@ -64,37 +67,61 @@ def empty_store(max_keyframes: int, max_points: int, *, device="cuda") -> Keyfra
     )
 
 
+def clone_store(store: KeyframeStore) -> KeyframeStore:
+    """A copy of every field (the carry that :func:`insert_keyframe_`
+    writes)."""
+    return KeyframeStore(*(t.clone() for t in store))
+
+
+def insert_keyframe_(
+    store: KeyframeStore,
+    position: torch.Tensor,
+    quat: torch.Tensor,
+    points: torch.Tensor,
+    mask: torch.Tensor,
+    covs: torch.Tensor,
+) -> None:
+    """Insert a keyframe into ``store`` IN PLACE, its slot picked on the
+    device: slot ``count``, or at capacity the farthest-from-``position``
+    keyframe that is not a convex-hull vertex (the farthest overall if
+    every valid keyframe is one). The hull runs only at capacity, under a
+    ``core/control.cond`` (the JAX package's ``lax.cond``)."""
+    K = store.capacity
+    slot = torch.clamp_max(store.count, K - 1).to(torch.int64).reshape(1)
+
+    def victim(slot):
+        ds = torch.linalg.vector_norm(store.positions - position, dim=1)
+        hull = convex_hull_mask(store.positions, store.valid)
+        cand = store.valid & ~hull
+        cand = torch.where(torch.any(cand), cand, store.valid)
+        slot.copy_(torch.argmax(torch.where(cand, ds, -1.0)).reshape(1))
+
+    control.cond(store.count >= K, victim, None, (slot,))
+    for t, row in zip(store[:5], (position, quat, points, mask, covs)):
+        t.index_copy_(0, slot, row.to(t.dtype)[None])
+    store.valid.index_fill_(0, slot, True)
+    store.count.add_(1)
+
+
 def add_keyframe(
     store: KeyframeStore,
-    do_add: bool,
+    do_add,
     position: torch.Tensor,
     quat: torch.Tensor,
     points: torch.Tensor,
     mask: torch.Tensor,
     covs: torch.Tensor,
 ) -> KeyframeStore:
-    """Insert a keyframe at slot ``count`` when ``do_add``; at capacity
-    EVICT the farthest-from-``position`` keyframe that is not a
-    convex-hull vertex (the farthest overall if every valid keyframe is
-    one). The caller's store is left as it was."""
-    if not bool(do_add):
-        return store
-    K = store.capacity
-    if int(store.count) >= K:
-        ds = torch.linalg.vector_norm(store.positions - position, dim=1)
-        hull = convex_hull_mask(store.positions, store.valid)
-        cand = store.valid & ~hull
-        if not bool(cand.any()):
-            cand = store.valid
-        i = int(torch.argmax(torch.where(cand, ds, -1.0)))
-    else:
-        i = min(int(store.count), K - 1)
-    new = []
-    for old, row in zip(store[:6], (position, quat, points, mask, covs, True)):
-        t = old.clone()
-        t[i] = row
-        new.append(t)
-    return KeyframeStore(*new, count=store.count + 1)
+    """Insert a keyframe when ``do_add`` (a bool or a 0-d bool tensor,
+    decided by ``core/control.cond``), as :func:`insert_keyframe_` does,
+    into a copy of ``store``; the caller's store is left as it was."""
+    def insert(*fields):
+        insert_keyframe_(KeyframeStore(*fields), position, quat, points, mask, covs)
+
+    new = clone_store(store)
+    pred = torch.as_tensor(do_add, dtype=torch.bool, device=store.count.device)
+    control.cond(pred, insert, None, tuple(new))
+    return new
 
 
 def overflow_count(store: KeyframeStore) -> torch.Tensor:
@@ -518,7 +545,9 @@ def gather_submap(
     package's block copies: slot i writes its FULL P-row block at its
     cumulative valid offset (the next slot overwrites the sentinel tail),
     the start clamped to ``capacity`` like ``dynamic_update_slice`` into
-    a buffer with a P-row scratch tail, which drops overflow.
+    a buffer with a P-row scratch tail, which drops overflow. Here each
+    output row gathers from the last block that covers it, with no host
+    read.
 
     Returns (points (S,3), mask (S,), covs (S,3,3)), S = capacity or
     max_slots * P.
@@ -535,15 +564,21 @@ def gather_submap(
         return pts.reshape(S, 3), msk.reshape(S), cvs.reshape(S, 3, 3)
 
     cnt = msk.sum(dim=1)
-    offs = (torch.cumsum(cnt, 0) - cnt).tolist()  # host sync
+    # slot i's block starts at its cumulative count, clamped to capacity
+    # (non-decreasing); a row's source is the LAST slot whose block
+    # covers it, as the JAX package's block writes leave it (each block
+    # overwrites the previous one's sentinel tail), found on the device
+    offs = torch.clamp_max(torch.cumsum(cnt, 0) - cnt, capacity)
     eye = torch.eye(3, dtype=cvs.dtype, device=cvs.device)
     cvs = torch.where(msk[..., None, None], cvs, eye)
-    buf_p = torch.full((capacity + P, 3), SENTINEL, dtype=pts.dtype, device=pts.device)
-    buf_c = eye.repeat(capacity + P, 1, 1)
-    for i, o in enumerate(offs):
-        o = min(o, capacity)
-        buf_p[o : o + P] = pts[i]
-        buf_c[o : o + P] = cvs[i]
+    rows = torch.arange(capacity, dtype=offs.dtype, device=pts.device)
+    src = torch.searchsorted(offs, rows, right=True) - 1
+    src_c = src.clamp_min(0)
+    k = rows - offs[src_c]
+    cover = (src >= 0) & (k < P)
+    k = k.clamp(0, P - 1)
+    out_p = torch.where(cover[:, None], pts[src_c, k], SENTINEL)
+    out_c = torch.where(cover[:, None, None], cvs[src_c, k], eye)
     total = torch.clamp_max(cnt.sum(), capacity)
     out_msk = torch.arange(capacity, device=pts.device) < total
-    return buf_p[:capacity], out_msk, buf_c[:capacity]
+    return out_p, out_msk, out_c

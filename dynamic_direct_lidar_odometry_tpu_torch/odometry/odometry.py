@@ -3,8 +3,8 @@
 selection -> scan-to-submap GICP -> keyframe update.
 
 The JAX package's ``lax.cond`` branches (the hull-cache rebuild and the
-keyframe add) are Python ``if`` tests on one scalar read back from the
-device.
+keyframe add) are ``core/control.cond`` branches on device flags: IF
+nodes inside a captured graph, one predicate read outside one.
 """
 
 from __future__ import annotations
@@ -17,6 +17,7 @@ import torch
 import torch.distributed
 
 from dynamic_direct_lidar_odometry_tpu_torch.config import DDLOConfig
+from dynamic_direct_lidar_odometry_tpu_torch.core import control
 from dynamic_direct_lidar_odometry_tpu_torch.core import device as device_mod
 from dynamic_direct_lidar_odometry_tpu_torch.core import se3
 from dynamic_direct_lidar_odometry_tpu_torch.core.cloud import SENTINEL
@@ -83,7 +84,7 @@ def _settings(stage, compute_residuals: bool = True) -> gicp.GICPSettings:
 
 
 def _scalar(x, dtype, dev) -> torch.Tensor:
-    return torch.tensor(x, dtype=dtype, device=dev)
+    return torch.full((), x, dtype=dtype, device=dev)
 
 
 def init_state(
@@ -219,13 +220,14 @@ def step(
                       state.hull_dirty)
     else:
         # exact on-device hulls, rebuilt only when their inputs changed
-        if bool(state.hull_dirty | (alpha != state.hull_alpha)):  # host sync
-            cv_mask = kf.convex_hull_mask(state.store.positions, state.store.valid)
-            cc_mask = kf.concave_hull_mask(
-                state.store.positions, state.store.valid, alpha
-            )
-        else:
-            cv_mask, cc_mask = state.hull_cv, state.hull_cc
+        cv_mask, cc_mask = state.hull_cv.clone(), state.hull_cc.clone()
+
+        def rebuild(cv, cc):
+            cv.copy_(kf.convex_hull_mask(state.store.positions, state.store.valid))
+            cc.copy_(kf.concave_hull_mask(state.store.positions, state.store.valid, alpha))
+
+        control.cond(state.hull_dirty | (alpha != state.hull_alpha), rebuild, None,
+                     (cv_mask, cc_mask))
         hull_cache = (cv_mask, cc_mask, alpha, _scalar(False, torch.bool, dev))
     sel = kf.select_submap(
         state.store, T_s2s[:3, 3], alpha,
@@ -335,9 +337,9 @@ def keyframe_decision(
     d = torch.where(store.valid, d, torch.inf)
     thresh = state.keyframe_thresh_dist
     num_nearby = torch.sum((d <= thresh * 1.5) & store.valid)
-    closest = torch.argmin(d)
-    dd = d[closest]
-    dq = se3.quat_mul(rotq, se3.quat_conj(store.quats[closest]))
+    closest = torch.argmin(d).reshape(1)
+    dd = d.index_select(0, closest)[0]
+    dq = se3.quat_mul(rotq, se3.quat_conj(store.quats.index_select(0, closest)[0]))
     theta_deg = se3.quat_angle_deg(dq)
 
     # far enough, or turned enough with at most one keyframe nearby
@@ -357,10 +359,11 @@ def update_keyframes(
     (odom.cc:1067-1154): one voxel pass at submap resolution (when both
     voxel filters are on, the scan-resolution re-filter is folded into
     it, as in the JAX package). Returns (state', added?); the store is
-    written in place."""
+    written in place: a copy of the caller's, which stays as it was."""
     new_kf = keyframe_decision(cfg, state, state.pose, state.rotq)
-    store = state.store
-    if bool(new_kf):  # host sync
+    store = kf.clone_store(state.store)
+
+    def insert(*fields):
         pre = cfg.preprocessing
         pts_in, mask_in = world_points, world_mask
         if refilter and not (pre.voxel_scan.use and pre.voxel_submap.use):
@@ -385,9 +388,9 @@ def update_keyframes(
             pts, mask, k=cfg.gicp.s2s.k_correspondences,
             morton_ordered=pre.voxel_submap.use,
         )
-        store = kf.add_keyframe(
-            store, True, state.pose, state.rotq, pts, mask, covs
-        )
+        kf.insert_keyframe_(kf.KeyframeStore(*fields), state.pose, state.rotq, pts, mask, covs)
+
+    control.cond(new_kf, insert, None, tuple(store))
     return (
         state._replace(store=store, hull_dirty=state.hull_dirty | new_kf),
         new_kf,

@@ -66,7 +66,7 @@ def masked_median_range(points: torch.Tensor, mask: torch.Tensor) -> torch.Tenso
     d = torch.where(mask, d, torch.inf)
     cnt = mask.sum()
     srt = torch.sort(d).values
-    med = srt[torch.clamp(cnt // 2, 0, d.shape[0] - 1)]
+    med = srt.index_select(0, torch.clamp(cnt // 2, 0, d.shape[0] - 1).reshape(1))[0]
     return torch.where(cnt > 0, med, 0.0)
 
 

@@ -12,6 +12,7 @@ import torch
 from dynamic_direct_lidar_odometry_tpu_torch.core import device, fp
 from dynamic_direct_lidar_odometry_tpu_torch.ops import knn as knn_ops
 from dynamic_direct_lidar_odometry_tpu_torch.ops import nn_cuda
+from dynamic_direct_lidar_odometry_tpu_torch.utils import profiling
 
 
 def plane_covariances(
@@ -29,6 +30,7 @@ def plane_covariances(
     window path, as on the JAX package's TPU; on CPU the exact k-NN
     path runs, as on the JAX package's CPU.
     """
+    profiling.count(points.device, "covariance_calls")  # on the device: a replay counts
     tgt = points if neighbor_points is None else neighbor_points
     impl = os.environ.get("DDLO_KNN_IMPL", "auto")
     if (
@@ -310,7 +312,7 @@ def _smallest_eigvec(A: torch.Tensor, k: _K) -> torch.Tensor:
     )
     nrm = _sqrt_rn(_sumsq(best))[..., None]
     ez = torch.zeros_like(best)
-    ez[..., 2] = 1.0
+    ez[..., 2].fill_(1.0)
     return torch.where(nrm > 1e-12, _div_rn(best, torch.clamp_min(nrm, 1e-30)), ez)
 
 

@@ -81,7 +81,7 @@ def voxel_downsample(
     big = 2**30
     # mask BEFORE the float->int cast: raw scans carry NaN in invalid rows
     safe = torch.where(mask[:, None], points, 0.0)
-    r = torch.tensor(res, dtype=torch.float32, device=points.device)
+    r = torch.full((), res, dtype=torch.float32, device=points.device)
     ik = torch.floor(safe / r if traced else safe * (1.0 / r)).to(torch.int32)
     ik = torch.where(mask[:, None], ik, big)
 
@@ -99,8 +99,11 @@ def voxel_downsample(
     gid = torch.cumsum(new_group.to(torch.int64), dim=0) - 1
     gid = torch.where((gid < capacity) & ms, gid, capacity)
 
-    lengths = torch.bincount(gid, minlength=capacity + 1)
-    sums = torch.segment_reduce(ps, "sum", lengths=lengths, axis=0)[:capacity]
+    # group sizes by an integer scatter-add (exact in any order) and the
+    # reduction without its host-side checks of the lengths: no host read
+    lengths = torch.zeros(capacity + 1, dtype=torch.int64, device=gid.device)
+    lengths.index_add_(0, gid, torch.ones_like(gid))
+    sums = torch.segment_reduce(ps, "sum", lengths=lengths, axis=0, unsafe=True)[:capacity]
     cnts = lengths[:capacity].to(points.dtype)
 
     out_mask = cnts > 0

@@ -3,10 +3,13 @@
 Same linearization (NN correspondences, Mahalanobis weights
 ``M = (C_B + R C_A R^T)^-1``, ``H = J^T M J``), same unrolled LDLT solve
 and the same Levenberg-Marquardt / Gauss-Newton loops as the JAX
-package. ``lax.while_loop`` becomes a Python loop: the accept/reject and
-convergence tests read one scalar per LM iteration back to the host.
+package. Each ``lax.while_loop`` of :func:`align` is a
+``core/control.while_loop`` over an LM state held in device tensors and
+updated in place: on the card inside a captured graph a WHILE node
+decides on the device; outside one the loop reads only its predicate.
 All scalar LM state stays in f32 on the device, so the accept/reject
-decisions are the JAX package's arithmetic. The rounding-sensitive steps
+decisions are the JAX package's arithmetic. :func:`align_batch` still
+drives its loops from the host (one read per iteration for the batch). The rounding-sensitive steps
 (point transform, sums, inverse, solve, exp, compose) come from
 :func:`arithmetic`: on the host ``ops/gicp_xla.py`` (XLA's CPU order, the
 jitted JAX package's bits), on the card :data:`TORCH`.
@@ -25,7 +28,7 @@ import types
 
 import torch
 
-from dynamic_direct_lidar_odometry_tpu_torch.core import device, se3
+from dynamic_direct_lidar_odometry_tpu_torch.core import control, device, se3
 from dynamic_direct_lidar_odometry_tpu_torch.core.cloud import SENTINEL
 from dynamic_direct_lidar_odometry_tpu_torch.ops import gicp_xla
 from dynamic_direct_lidar_odometry_tpu_torch.ops import knn as knn_ops
@@ -343,16 +346,21 @@ def align(
 
     eye6 = torch.eye(6, dtype=f32, device=dev)
 
-    def lm_inner(x0, lam, y0, H, b, aux):
-        """One step_lm: loop over lambda until a step is accepted
+    def lm_inner(x, lam, y0, H, b, aux, skip):
+        """One step_lm in place: loop over lambda until a step is accepted
         (rho >= 0), convergence is detected on a rejected step, or
-        lm_max_iterations is exhausted. Returns
-        (x, lam, done, accepted, conv_on_reject, delta)."""
-        nu = torch.tensor(2.0, dtype=f32, device=dev)
-        x, delta_done = x0, torch.eye(4, dtype=f32, device=dev)
-        done = accepted = conv = False
-        j = 0
-        while j < s.lm_max_iterations and not done:
+        lm_max_iterations is exhausted (``skip``: not at all). ``x`` and
+        ``lam`` are updated; returns (done, accepted, conv_on_reject,
+        delta)."""
+        j = torch.zeros((), dtype=torch.int32, device=dev)
+        nu = torch.full((), 2.0, dtype=f32, device=dev)
+        done, accepted, conv = (torch.zeros((), dtype=torch.bool, device=dev) for _ in range(3))
+        delta_done = torch.eye(4, dtype=f32, device=dev)
+
+        def more(*_):
+            return (j < s.lm_max_iterations) & ~done & ~skip
+
+        def trial(*_):
             d = solve6_ldlt(H + lam * eye6, -b, ar.sub)
             delta = ar.se3_exp(d)
             xi = ar.compose(delta, x)
@@ -360,62 +368,70 @@ def align(
             # d^T (H + lam I) d >= 0; guard exact convergence d = 0 (0/0)
             denom = torch.clamp_min(torch.dot(d, lam * d - b), 1e-30)
             rho = (y0 - yi) / denom
-            reject_t = rho < 0
-            flags = torch.stack([reject_t, reject_t & _is_converged(delta, s)])
-            reject, conv_on_reject = flags.tolist()  # host sync
-            if not reject:
-                t = 2.0 * rho - 1.0
-                lam = lam * torch.clamp_min(1.0 - t * t * t, 1.0 / 3.0)
-                x, done, accepted, delta_done = xi, True, True, delta
-            elif conv_on_reject:
-                done, conv, delta_done = True, True, delta
-            else:
-                lam = nu * lam
-                nu = 2.0 * nu
-            j += 1
-        return x, lam, done, accepted, conv, delta_done
+            reject = rho < 0
+            acc = ~reject
+            crj = reject & _is_converged(delta, s)
+            t = 2.0 * rho - 1.0
+            lam_new = torch.where(
+                acc, lam * torch.clamp_min(1.0 - t * t * t, 1.0 / 3.0),
+                torch.where(crj, lam, nu * lam),
+            )
+            nu.copy_(torch.where(reject & ~crj, 2.0 * nu, nu))
+            lam.copy_(lam_new)
+            x.copy_(torch.where(acc, xi, x))
+            delta_done.copy_(torch.where(acc | crj, delta, delta_done))
+            accepted.logical_or_(acc)
+            conv.logical_or_(crj)
+            done.logical_or_(acc | crj)
+            j.add_(1)
 
-    x0 = guess.to(f32)
-    lm_lambda = torch.tensor(-1.0, dtype=f32, device=dev)
-    y_st = torch.tensor(0.0, dtype=f32, device=dev)
-    H_st = eye6
-    converged = failed = False
-    it = 0
-    trace = []
-    while it < s.max_iterations and not converged and not failed:
+        control.while_loop(more, trial, ())
+        return done, accepted, conv, delta_done
+
+    # the LM state, updated in place by the iterations (lax.while_loop's
+    # carry: the pose, lambda, the flags, the count, the last error and
+    # Hessian, the trace)
+    x0 = guess.to(f32).clone()
+    lm_lambda = torch.full((), -1.0, dtype=f32, device=dev)
+    converged = torch.zeros((), dtype=torch.bool, device=dev)
+    failed = torch.zeros((), dtype=torch.bool, device=dev)
+    it = torch.zeros((), dtype=torch.int32, device=dev)
+    y_st = torch.zeros((), dtype=f32, device=dev)
+    H_st = eye6.clone()
+    trace = torch.zeros((s.max_iterations if s.record_trace else 0, 4, 4), dtype=f32, device=dev)
+
+    def running(*_):
+        return (it < s.max_iterations) & ~converged & ~failed
+
+    def iteration(*_):
         y0, H, b, aux = lin(x0)
         hmax = torch.max(torch.abs(torch.diagonal(H)))
-        lam = torch.where(
-            lm_lambda < 0, s.lm_init_lambda_factor * hmax, lm_lambda
-        )
+        lam = torch.where(lm_lambda < 0, s.lm_init_lambda_factor * hmax, lm_lambda)
         # degenerate normal equations (no correspondence inside the
         # gate): stop with the pose unchanged
-        degenerate = bool(hmax < 1e-12)  # host sync
+        degenerate = hmax < 1e-12
         if s.optimizer == "gn":
             d = solve6_ldlt(H + 1e-12 * eye6, -b, ar.sub)
-            if degenerate:
-                d = torch.zeros_like(d)
+            d = torch.where(degenerate, 0.0, d)
             delta = ar.se3_exp(d)
             x_new = ar.compose(delta, x0)
-            converged = degenerate or bool(_is_converged(delta, s))
-            y_st, H_st = y0, H
-        elif degenerate:
-            x_new, converged = x0, True
-            y_st = y0
+            conv_new = degenerate | _is_converged(delta, s)
+            H_st.copy_(H)
         else:
-            x_new, lam, done, accepted, conv_rej, delta = lm_inner(
-                x0, lam, y0, H, b, aux
-            )
-            converged = conv_rej or (accepted and bool(_is_converged(delta, s)))
-            failed = not done  # lm_max_iterations exhausted
-            y_st = y0
-            if accepted:
-                H_st = H
-        lm_lambda = lam
+            x_new = x0.clone()
+            done, accepted, conv_rej, delta = lm_inner(x_new, lam, y0, H, b, aux, degenerate)
+            conv_new = degenerate | conv_rej | (accepted & _is_converged(delta, s))
+            failed.copy_(~done & ~degenerate)  # lm_max_iterations exhausted
+            H_st.copy_(torch.where(accepted & ~degenerate, H, H_st))
+        converged.copy_(conv_new)
+        y_st.copy_(y0)
+        lm_lambda.copy_(lam)
         if s.record_trace:
-            trace.append(x_new)
-        x0 = x_new
-        it += 1
+            trace.index_copy_(0, it.long().reshape(1), x_new[None])
+        x0.copy_(x_new)
+        it.add_(1)
+
+    control.while_loop(running, iteration, ())
 
     if s.compute_residuals:
         # final per-point NN residuals at the final pose; the sparse
@@ -437,15 +453,15 @@ def align(
         corr = torch.full((src_pts.shape[0],), -1, dtype=torch.int32, device=dev)
         (num_inliers,) = allsum(src_mask.sum(dtype=torch.int32))
     if s.record_trace:
-        pose_trace = torch.stack(
-            trace + [x0] * (s.max_iterations - len(trace))
-        )
+        # rows past the count repeat the final pose
+        rows = torch.arange(s.max_iterations, device=dev) < it
+        pose_trace = torch.where(rows[:, None, None], trace, x0)
     else:
-        pose_trace = torch.zeros((0, 4, 4), dtype=f32, device=dev)
+        pose_trace = trace
     return GICPResult(
         T=x0,
-        converged=torch.tensor(converged, device=dev) & (num_inliers > 0),
-        iterations=torch.tensor(it, dtype=torch.int32, device=dev),
+        converged=converged & (num_inliers > 0),
+        iterations=it,
         final_error=y_fin,
         final_hessian=H_fin,
         num_inliers=num_inliers,

@@ -30,18 +30,21 @@ def measurement_matrix(device=None) -> torch.Tensor:
     return torch.eye(N_MEAS, N_STATE, dtype=torch.float32, device=device)
 
 
+def _diag(a: float, b: float, device) -> torch.Tensor:
+    """(a x7, b x3) in f32, made on ``device`` (no host upload)."""
+    f32 = torch.float32
+    return torch.cat([torch.full((7,), a, dtype=f32, device=device),
+                      torch.full((3,), b, dtype=f32, device=device)])
+
+
 def initial_covariance(device=None) -> torch.Tensor:
     """P0 = diag(1000 x7, 10000 x3) (bounding_box_filter.cpp:28-30)."""
-    return torch.diag(
-        torch.tensor([1000.0] * 7 + [10000.0] * 3, dtype=torch.float32, device=device)
-    )
+    return torch.diag(_diag(1000.0, 10000.0, device))
 
 
 def process_noise(device=None) -> torch.Tensor:
     """Q = diag(1 x7, 0.01 x3) (bounding_box_filter.cpp:35-37)."""
-    return torch.diag(
-        torch.tensor([1.0] * 7 + [0.01] * 3, dtype=torch.float32, device=device)
-    )
+    return torch.diag(_diag(1.0, 0.01, device))
 
 
 def measurement_noise(device=None) -> torch.Tensor:

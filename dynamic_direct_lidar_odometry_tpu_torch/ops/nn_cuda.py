@@ -39,7 +39,12 @@ for B streams at once, :func:`prepare_sparse_targets` /
 :data:`LAUNCHES` counts every kernel: also the two that the JAX package
 left to XLA, ``jv_solve`` (``csrc/jv_solve.cu``, launched by
 ``ops/hungarian.solve``) and ``regularize_plane`` (``csrc/plane_reg.cu``,
-``ops/covariance.regularize_plane``).
+``ops/covariance.regularize_plane``), and ``set_cond``
+(``csrc/graph_cond.cu``, the conditional nodes' handle write of
+``core/control.py``). The counts advance where a wrapper launches, so
+inside a captured graph at capture, not at replay; the same launch also
+adds one to its count on the device (``utils.profiling.count``), which
+a replay advances.
 """
 
 from __future__ import annotations
@@ -53,6 +58,7 @@ import torch
 
 from dynamic_direct_lidar_odometry_tpu_torch.core.cloud import pad_rows
 from dynamic_direct_lidar_odometry_tpu_torch.ops import _cuda_build
+from dynamic_direct_lidar_odometry_tpu_torch.utils import profiling
 
 # distance placed on padded / invalid slots; anything >= this loses
 _BIG = 3.0e12
@@ -144,7 +150,8 @@ def nn1_sparse_reference(
 # ``ops/hungarian.py`` (``jv_solve``) and ``ops/covariance.py``
 # (``plane_reg``), built together at first use
 _SOURCES = {"nn1_sparse": ("nn1_sparse.cu",), "knn_classes": ("knn_classes.cu",),
-            "jv_solve": ("jv_solve.cu",), "plane_reg": ("plane_reg.cu",)}
+            "jv_solve": ("jv_solve.cu",), "plane_reg": ("plane_reg.cu",),
+            "graph_cond": ("graph_cond.cu",)}
 _BUILT: Dict[str, _cuda_build.Built] = {}
 
 
@@ -169,6 +176,12 @@ def build() -> Dict[str, _cuda_build.Built]:
         ("knn_classes", "ddlo_knn_classes_unit_rows", []),
         ("jv_solve", "ddlo_jv_solve", [P, P, I, P, P]),
         ("plane_reg", "ddlo_plane_reg", [P, I, P, P]),
+        ("graph_cond", "ddlo_set_cond", [P, ctypes.c_ulonglong, P]),
+        ("graph_cond", "ddlo_cond_handle", [P, P]),
+        ("graph_cond", "ddlo_cond_node", [P, I, ctypes.c_ulonglong, P]),
+        ("graph_cond", "ddlo_capture_into", [P, P]),
+        ("graph_cond", "ddlo_capture_close", [P]),
+        ("graph_cond", "ddlo_stream_create", [P]),
     ):
         f = getattr(built[lib].lib, fn)
         f.argtypes = args
@@ -202,13 +215,16 @@ def _check_inputs(q, tt, counts=None, lists=None):
 
 def run_kernel(fn, name, *args):
     """Launch ``fn`` on the current stream of the first arg's device; raise
-    on a refused launch; count it in :data:`LAUNCHES` under ``name``.
-    Tensors pass as their data pointers, None as a null pointer."""
+    on a refused launch; count it under ``name`` in :data:`LAUNCHES` (on
+    the host) and on the device (``utils.profiling.count``, after the
+    launch on the same stream: a graph replay counts it too). Tensors
+    pass as their data pointers, None as a null pointer."""
     with torch.cuda.device(args[0].device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(*(a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args), stream)
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+        if err != 0:
+            raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+        profiling.count(args[0].device, name)
     LAUNCHES[name] += 1
 
 

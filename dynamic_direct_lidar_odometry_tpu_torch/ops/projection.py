@@ -76,7 +76,7 @@ def camera_grid_rowcol(
     """Row/col on the fork's depth-camera grid (odom.cc:804-827)."""
     x, y, z = points_sensor[:, 0], points_sensor[:, 1], points_sensor[:, 2]
     dev = points_sensor.device
-    lim = torch.tensor(half_fov_deg, dtype=torch.float32, device=dev) * (math.pi / 180.0)
+    lim = torch.full((), half_fov_deg, dtype=torch.float32, device=dev) * (math.pi / 180.0)
     theta = torch.atan2(x, z)
     phi = torch.atan2(y, torch.sqrt(x * x + z * z))
     u = ((theta + lim) / (2 * lim) * W).to(torch.int32)

@@ -32,7 +32,7 @@ def replay_batch(
 ) -> BatchReplayResult:
     """Replay B streams of S scans each on the mesh's card (default
     ``sharding.make_mesh()``: the card). Each scan step advances every
-    stream through ``pipeline.step``, one stream after another (see
+    stream through ``pipeline.step_eager``, one stream after another (see
     :func:`sharding.batched_pipeline_step`)."""
     mesh = mesh if mesh is not None else sharding.make_mesh()
     stamps = np.asarray(stamps, np.float32)

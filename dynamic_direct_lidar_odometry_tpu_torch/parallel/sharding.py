@@ -142,15 +142,14 @@ def batched_pipeline_step(cfg: DDLOConfig, mesh: Mesh):
     (B,HW,3), raw_mask (B,HW), stamps (B,)) and get (states', outputs),
     each stacked over B.
 
-    The streams advance one after another through ``pipeline.step`` on
-    the mesh's card: the step still reads the host per stream (the LM
-    loops, the JV solve, the keyframe insert), so a truly batched step
-    waits for sync-free loops (ROADMAP.md queue 1 items 2-3)."""
+    The streams advance one after another through ``pipeline.step_eager``
+    on the mesh's card: this mode stays eager (a truly batched step, one
+    graph for B streams, is ROADMAP.md queue 1 item 3)."""
 
     def step(states, raw_points, raw_mask, stamps):
         raw_points, raw_mask, stamps = shard_batch(mesh, (raw_points, raw_mask, stamps))
         results = [
-            pipeline.step(cfg, tree.index(states, b), raw_points[b], raw_mask[b], stamps[b])
+            pipeline.step_eager(cfg, tree.index(states, b), raw_points[b], raw_mask[b], stamps[b])
             for b in range(raw_points.shape[0])
         ]
         new_states, outputs = zip(*results)

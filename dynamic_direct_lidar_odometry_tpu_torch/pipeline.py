@@ -12,15 +12,30 @@ Stage order as in the JAX package (odom.cc:614-729):
 
 ``cfg.dynamic_detection=False`` is plain DLO: the keyframe update takes
 the registered scan, and the detection and tracker outputs are empty.
+
+On the card :func:`step` and :func:`step_chunk` run as captured CUDA
+graphs (``core/control.Graph``), the port's counterpart of ``jax.jit``:
+one graph per static signature (the configuration, the shapes, whether
+hull masks are given, the backends chosen by ``DDLO_NN_IMPL`` /
+``DDLO_KNN_IMPL``, and K for a chunk), captured at the first call after
+one eager warm-up and replayed after it. The loops and branches inside
+(the LM loops, the CCL sweeps, the hull rebuild, the keyframe insert and
+its eviction) are conditional nodes decided on the device, so a replay
+reads nothing back to the host. :func:`step_eager` keeps the
+host-driven step; the CPU and the point-parallel step
+(``axis_name``: gloo collectives cannot be captured) always run eagerly.
 """
 
 from __future__ import annotations
 
+import collections
+import os
 from typing import NamedTuple, Tuple
 
 import torch
 
 from dynamic_direct_lidar_odometry_tpu_torch.config import DDLOConfig
+from dynamic_direct_lidar_odometry_tpu_torch.core import control
 from dynamic_direct_lidar_odometry_tpu_torch.core import device as device_mod
 from dynamic_direct_lidar_odometry_tpu_torch.core import se3, tree
 from dynamic_direct_lidar_odometry_tpu_torch.core.cloud import SENTINEL
@@ -85,14 +100,85 @@ def step(
     """One DDLO transition. ``raw_points`` (H*W, 3) may carry NaN in
     invalid pixels; numpy inputs are moved to the state's device. A
     tensor ``timestamp`` stays on the device (a Python or numpy number is
-    uploaded)."""
+    written into a device scalar).
+
+    On the card the transition is a replay of a captured graph (see the
+    module docstring); the returned state and outputs are fresh tensors,
+    never the graph's buffers. The CPU and the point-parallel step
+    (``axis_name``) run it op by op from the host, as :func:`step_eager`
+    does."""
     dev = state.odom.T.device
+    raw_points, raw_mask, stamp = _inputs(dev, raw_points, raw_mask, timestamp)
+    if dev.type != "cuda" or axis_name is not None:
+        return _step(cfg, state, raw_points, raw_mask, stamp, hull_masks, axis_name, pt_size)
+    args = (state, raw_points, raw_mask, stamp, hull_masks)
+    return _graph("step", cfg, args, lambda *a: _step(cfg, *a))(*args)
+
+
+def step_eager(cfg: DDLOConfig, state: DDLOState, raw_points, raw_mask, timestamp,
+               hull_masks: Tuple[torch.Tensor, torch.Tensor] | None = None,
+               axis_name: torch.distributed.ProcessGroup | None = None,
+               pt_size: int = 1) -> Tuple[DDLOState, DDLOOutputs]:
+    """:func:`step` driven from the host op by op: every loop and branch
+    reads its predicate back between turns."""
+    dev = state.odom.T.device
+    raw_points, raw_mask, stamp = _inputs(dev, raw_points, raw_mask, timestamp)
+    return _step(cfg, state, raw_points, raw_mask, stamp, hull_masks, axis_name, pt_size)
+
+
+def _inputs(dev, raw_points, raw_mask, timestamp):
     raw_points = torch.as_tensor(raw_points, dtype=torch.float32, device=dev)
     raw_mask = torch.as_tensor(raw_mask, dtype=torch.bool, device=dev)
     if isinstance(timestamp, torch.Tensor):
         stamp = timestamp.to(device=dev, dtype=torch.float32).reshape(())
     else:
-        stamp = torch.tensor(float(timestamp), dtype=torch.float32, device=dev)
+        stamp = torch.full((), float(timestamp), dtype=torch.float32, device=dev)
+    return raw_points, raw_mask, stamp
+
+
+# captured graphs by static signature, least recently used first
+_GRAPHS: "collections.OrderedDict[tuple, control.Graph]" = collections.OrderedDict()
+MAX_GRAPHS = 4
+
+
+def _signature(x) -> tuple:
+    out = []
+    tree.map_leaves(
+        lambda t: out.append((tuple(t.shape), t.dtype, t.device) if isinstance(t, torch.Tensor)
+                             else t), x)
+    return tuple(out)
+
+
+def _graph(kind: str, cfg: DDLOConfig, args: tuple, fn) -> control.Graph:
+    """The graph of ``fn`` for this static signature, captured at its first
+    call; at most :data:`MAX_GRAPHS` are kept (each holds its memory
+    pool), the least recently used dropped first."""
+    key = (kind, cfg, os.environ.get("DDLO_NN_IMPL"), os.environ.get("DDLO_KNN_IMPL"),
+           tuple(a is None for a in args), _signature(args))
+    g = _GRAPHS.get(key)
+    if g is None:
+        while len(_GRAPHS) >= MAX_GRAPHS:
+            _GRAPHS.popitem(last=False)
+        g = _GRAPHS[key] = control.Graph(fn, args)
+    _GRAPHS.move_to_end(key)
+    return g
+
+
+def clear_graphs() -> None:
+    """Drop every captured graph (and with it its memory pool)."""
+    _GRAPHS.clear()
+
+
+def graph_stats() -> list:
+    """Per cached graph: its kind, capture seconds, the memory its capture
+    reserved (bytes) and its replays."""
+    return [dict(kind=k[0], capture_s=g.capture_s, pool_bytes=g.pool_bytes,
+                 replays=g.replays) for k, g in _GRAPHS.items()]
+
+
+def _step(cfg, state, raw_points, raw_mask, stamp, hull_masks=None, axis_name=None, pt_size=1):
+    """The transition on device tensors (the body the graph captures)."""
+    dev = state.odom.T.device
     H, W = cfg.detection.rows, cfg.detection.columns
     S = cfg.capacity.max_objects
 
@@ -201,16 +287,23 @@ def step_chunk(
     keyframe is always selected by the knn-nearest rule). Returns the
     final state and every output field stacked over the K scans.
 
-    A plain loop: the step still reads the host inside (LM loops, hull
-    check, keyframe insert, JV solve, CCL sweeps), so the chunk cannot be
-    one CUDA graph yet. The stamps stay on the device."""
+    On the card the K steps are ONE captured graph, replayed once per
+    chunk; on the CPU they run op by op from the host. The stamps stay
+    on the device."""
     dev = state.odom.T.device
     pts_stack = torch.as_tensor(pts_stack, dtype=torch.float32, device=dev)
     mask_stack = torch.as_tensor(mask_stack, dtype=torch.bool, device=dev)
     ts_stack = torch.as_tensor(ts_stack, dtype=torch.float32, device=dev)
+    args = (state, pts_stack, mask_stack, ts_stack, hull_masks)
+    if dev.type != "cuda":
+        return _chunk(cfg, *args)
+    return _graph("chunk", cfg, args, lambda *a: _chunk(cfg, *a))(*args)
+
+
+def _chunk(cfg, state, pts_stack, mask_stack, ts_stack, hull_masks):
     outs = []
     for k in range(pts_stack.shape[0]):
-        state, out = step(cfg, state, pts_stack[k], mask_stack[k], ts_stack[k], hull_masks)
+        state, out = _step(cfg, state, pts_stack[k], mask_stack[k], ts_stack[k], hull_masks)
         outs.append(out)
     return state, tree.stack(outs)
 

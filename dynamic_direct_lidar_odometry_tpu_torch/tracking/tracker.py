@@ -19,6 +19,7 @@ from dynamic_direct_lidar_odometry_tpu_torch.ops import bbox as bbox_ops
 from dynamic_direct_lidar_odometry_tpu_torch.ops import hungarian, kalman
 from dynamic_direct_lidar_odometry_tpu_torch.ops.bbox import Objects
 from dynamic_direct_lidar_odometry_tpu_torch.ops.projection import norm3
+from dynamic_direct_lidar_odometry_tpu_torch.utils import profiling
 
 # Object status (include/tracking/object.h:9-26)
 UNDEFINED, STATIC, DYNAMIC = 0, 1, 2
@@ -110,6 +111,7 @@ def update(
     T = state.capacity
     D = dets.valid.shape[0]
     dev = state.x.device
+    profiling.count(dev, "tracker_updates")  # on the device: a replay counts
     dt = torch.as_tensor(dt, dtype=torch.float32, device=dev)
     ar_T = torch.arange(T, device=dev)
     ar_D = torch.arange(D, device=dev)
@@ -264,5 +266,5 @@ def status_detection_mask(
         sel = sel | (state.status == s)
     sel = sel & state.active & (state.det_slot >= 0)
     out = torch.zeros((num_det_slots + 1,), dtype=torch.bool, device=sel.device)
-    out[torch.where(sel, state.det_slot.long(), num_det_slots)] = True
+    out.index_fill_(0, torch.where(sel, state.det_slot.long(), num_det_slots), True)
     return out[:num_det_slots]

@@ -14,7 +14,9 @@ match the reference so profiles line up:
 CUDA work is asynchronous: ``tock`` optionally synchronizes the stream
 of a tensor it is given, so the interval covers the device work, and
 :func:`annotation` / :func:`trace` label and capture ``torch.profiler``
-device timelines.
+device timelines. :func:`count` counts calls on the device, so that work
+replayed inside a captured graph is counted as it runs, and
+:func:`device_counts` reads the counts over a block.
 """
 
 from __future__ import annotations
@@ -178,3 +180,54 @@ def trace(dirname: str):
     with torch.profiler.profile(activities=acts) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(dirname, "trace.json"))
+
+
+# calls counted on the device: one int64 slot per key (kernel launches by
+# the wrappers' names, tracker updates, covariance calls, CCL sweeps) in
+# one buffer per device, made outside any capture and kept for the
+# process. A captured graph holds the buffer's address, so a replay, and
+# every turn of a conditional body, counts as it runs.
+MAX_COUNT_KEYS = 64
+_SLOTS: Dict[str, int] = {}
+_COUNTS: Dict[str, torch.Tensor] = {}
+
+
+def counts_buffer(device) -> torch.Tensor:
+    """The device's count buffer (made at its first use, which must come
+    before any capture on ``device``)."""
+    device = torch.device(device)
+    key = str(device if device.type != "cuda" or device.index is not None
+              else torch.device("cuda", torch.cuda.current_device()))
+    if key not in _COUNTS:
+        if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("profiling: the count buffer is made inside a capture")
+        _COUNTS[key] = torch.zeros(MAX_COUNT_KEYS, dtype=torch.int64, device=device)
+    return _COUNTS[key]
+
+
+def count(device, key: str, n: Any = 1) -> None:
+    """Add ``n`` (an int, or a 0-d integer tensor on ``device``) to
+    ``key``'s count on the device, on the current stream: no host read,
+    and inside a capture a node of the graph."""
+    if key not in _SLOTS:
+        if len(_SLOTS) >= MAX_COUNT_KEYS:
+            raise RuntimeError(f"profiling: more than {MAX_COUNT_KEYS} count keys")
+        _SLOTS[key] = len(_SLOTS)
+    counts_buffer(device)[_SLOTS[key]].add_(n)
+
+
+@contextlib.contextmanager
+def device_counts(device):
+    """The counts of :func:`count` over the block: zeroed on entry (in
+    stream order), read on exit into the yielded dict (``key -> count``,
+    nonzero keys only)."""
+    buf = counts_buffer(device)
+    buf.zero_()
+    out: Dict[str, int] = {}
+    try:
+        yield out
+    finally:
+        if buf.is_cuda:
+            torch.cuda.synchronize(buf.device)
+        vals = buf.tolist()
+        out.update({k: vals[i] for k, i in sorted(_SLOTS.items()) if vals[i]})

@@ -45,9 +45,13 @@ def test_add_keyframe_eviction_matches_jax(scene):
 
 def test_add_keyframe_no_add_is_identity():
     ts = kf.empty_store(3, 4, device="cpu")
+    before = kf.clone_store(ts)
     out = kf.add_keyframe(ts, False, torch.ones(3), torch.tensor([1.0, 0, 0, 0]),
                           torch.ones(4, 3), torch.ones(4, dtype=torch.bool), torch.eye(3).expand(4, 3, 3))
-    assert out is ts and int(out.count) == 0
+    # a copy (the single control.cond path), every field equal to the store
+    for a, b, c in zip(out, ts, before):
+        assert torch.equal(a, c) and torch.equal(b, c)
+    assert int(out.count) == 0
 
 
 def _hull_scenes():

@@ -6,7 +6,8 @@ chip_smoke's own helper, two scans of ``runner.replay``, the CLI's
 ``synth``, ``parallel.replay.replay_batch`` (2 streams, 2 scans),
 ``pipeline.step_chunk``, a binary ``io.pcd.save_pcd`` through
 ``io.native`` and ``point_parallel_pipeline_step`` in a world of one
-``parallel.distributed`` rank, and load ``tools/torch_accuracy.py``; a
+``parallel.distributed`` rank, run a ``core/control.while_loop``, and
+load ``tools/torch_accuracy.py``; a
 static scan of their imports (that tool's and ``tools/torch_profile_slice.py``'s
 too); and a scan of the CUDA sources' includes."""
 
@@ -39,7 +40,14 @@ import numpy as np
 
 import chip_smoke
 from dynamic_direct_lidar_odometry_tpu_torch import config
+from dynamic_direct_lidar_odometry_tpu_torch.core import control
 from dynamic_direct_lidar_odometry_tpu_torch.io import synthetic
+
+import torch
+
+turns = torch.zeros((), dtype=torch.int32)
+control.while_loop(lambda t: t < 3, lambda t: t.add_(1), (turns,))
+assert int(turns) == 3
 
 cfg = config.doals_config()
 cfg = dataclasses.replace(
@@ -148,6 +156,7 @@ def test_port_sources_never_import_jax():
     for d, _, names in os.walk(os.path.join(ROOT, "dynamic_direct_lidar_odometry_tpu_torch")):
         files += [os.path.join(d, f) for f in names if f.endswith(".py")]
     assert len(files) > 20
+    assert os.path.join(ROOT, "dynamic_direct_lidar_odometry_tpu_torch", "core", "control.py") in files
     offenders = [f for f in files if jax_pat.search(open(f).read())]
     assert not offenders, offenders
     offenders = [f for f in files if pkg_pat.search(open(f).read())]

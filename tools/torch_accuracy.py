@@ -166,23 +166,9 @@ def _recorded_steps(pipeline):
 
 # launched on the card at every tracker update and covariance call, by any path
 CARD_KERNELS = ("jv_solve", "regularize_plane")
-
-
-@contextlib.contextmanager
-def _counted(mod, name):
-    """Count the calls of ``mod.<name>`` (a one-element list) without
-    changing what it does."""
-    calls, real = [0], getattr(mod, name)
-
-    def counted(*a, **kw):
-        calls[0] += 1
-        return real(*a, **kw)
-
-    setattr(mod, name, counted)
-    try:
-        yield calls
-    finally:
-        setattr(mod, name, real)
+# every kernel the legs can launch, by its wrapper's name (ops/nn_cuda.py)
+KERNEL_NAMES = ("nn1_sparse", "nn1_dense", "nn1_sparse_batched", "knn_classes", "knn_classes_sparse",
+                "jv_solve", "regularize_plane", "set_cond")
 
 
 def launch_check(path: str, launches: dict, linearizations: int, covariance_calls: int,
@@ -191,7 +177,9 @@ def launch_check(path: str, launches: dict, linearizations: int, covariance_call
     (``tracker_updates`` given) ``jv_solve`` launched once per tracker
     update and ``regularize_plane`` once per covariance call; on the host
     neither ran."""
-    got = {k: v for k, v in launches.items() if v}
+    # set_cond: a captured graph's loop tests (csrc/graph_cond.cu), not a
+    # path's kernel
+    got = {k: v for k, v in launches.items() if v and k != "set_cond"}
     card = dict(zip(CARD_KERNELS, (tracker_updates, covariance_calls)))
     if tracker_updates is None:
         if set(got) & set(card):
@@ -213,24 +201,25 @@ def run_leg(name: str, cfg, seq, progress: bool = False) -> dict:
     import torch
 
     from dynamic_direct_lidar_odometry_tpu_torch import runner
-    from dynamic_direct_lidar_odometry_tpu_torch.odometry import odometry
-    from dynamic_direct_lidar_odometry_tpu_torch.ops import hungarian, nn_cuda
-    from dynamic_direct_lidar_odometry_tpu_torch.utils import metrics
+    from dynamic_direct_lidar_odometry_tpu_torch.ops import hungarian
+    from dynamic_direct_lidar_odometry_tpu_torch.utils import metrics, profiling
 
     spec = LEGS[name]
     card = spec["device"] == "cuda"
     if card and not torch.cuda.is_available():
         raise RuntimeError(f"leg {name} runs on a CUDA card, and there is none")
+    # counted on the device (utils.profiling.count): on the card the steps
+    # are graph replays, which launch kernels without calling the
+    # wrappers (nn_cuda.LAUNCHES counts at capture)
     with leg_env(spec["env"]), _recorded_steps(runner.pipeline) as steps, \
-            _counted(odometry.covariance, "plane_covariances") as cov_calls, \
-            _counted(runner.pipeline.tracker, "update") as updates:
-        nn_cuda.LAUNCHES.clear()
+            profiling.device_counts(spec["device"]) as counts:
         hungarian.HOST_READS.clear()
         t0 = time.perf_counter()
         res = runner.replay(cfg, seq, hulls=spec["hulls"], progress=progress, device=spec["device"])
         seconds = time.perf_counter() - t0
-        launches = dict(nn_cuda.LAUNCHES)
         jv_host_reads = sum(hungarian.HOST_READS.values())
+    launches = {k: counts[k] for k in KERNEL_NAMES if counts.get(k)}
+    cov_calls, updates = [counts.get("covariance_calls", 0)], [counts.get("tracker_updates", 0)]
     flags = np.array([bool(k) for _, _, k in steps], bool)
     linz = sum(int(a) + int(b) + 1 for a, b, _ in steps)  # + the residual pass
     tot = res.profiler["total"]

@@ -2,32 +2,40 @@
 
 Runs ``bench_config()`` (full DDLO; ``--plain`` for plain DLO) over the
 first scans of ``steady_state_sequence(64)`` through ``pipeline.step``
-and reports, for the scans after the warm-up:
+(the captured graph) and ``pipeline.step_eager`` (the same transition
+driven op by op from the host) and reports, for the scans after the
+warm-up:
 
-- per-stage wall time (host clock around each stage, each closed by a
-  ``torch.cuda.synchronize()``): preprocess, covariances, S2S align,
+- per-stage wall time of the eager step (host clock around each stage,
+  each closed by a ``torch.cuda.synchronize()``; a graph has no stage
+  edges on the host): preprocess, covariances, S2S align,
   hulls + submap selection + gather, S2M align; with detection on, the
   projection (range and residual images), ground removal, CCL
   (``label_components``), ``segment_objects``, ``pca_bboxes``,
   ``tracker.update``, the static masks and the re-filter; then the
   keyframe update;
-- the CCL sweeps and host reads, and the JV assignment's host reads, per
-  scan; each hand-written kernel's launches per scan (its wrapper's count
-  in ``nn_cuda.LAUNCHES``), beside the tracker updates (one ``jv_solve``
-  each) and covariance calls (one ``regularize_plane`` each) per scan;
-- from ``torch.profiler`` over the same scans: device-busy time (the
-  union of kernel intervals) against the wall time, i.e. the device's
-  idle share, the number of kernel launches, the top kernels by device
-  time, and the hand-written kernels' time and share of busy time.
+- the eager step's CCL host reads, and the JV assignment's host reads,
+  per scan; each hand-written kernel's launches per scan (its wrapper's
+  count in ``nn_cuda.LAUNCHES``), beside the tracker updates (one
+  ``jv_solve`` each) and covariance calls (one ``regularize_plane`` each)
+  per scan;
+- from ``torch.profiler`` over the same scans, for the graph and the
+  eager step: device-busy time (the union of kernel intervals) against
+  the wall time, i.e. the device's idle share, the kernels run, the
+  host's launch calls (``cudaLaunchKernel``, ``cudaGraphLaunch``), the
+  graph's loop tests (``ddlo_set_cond``), the top kernels by device
+  time, and the hand-written kernels' time and share of busy time;
+- each graph's capture seconds and the memory its capture reserved.
 
     python tools/torch_profile_slice.py --scans 12 --warmup 2
     python tools/torch_profile_slice.py --backends dense   # DDLO_NN_IMPL/KNN_IMPL=pallas
     python tools/torch_profile_slice.py --plain
 
-Three replays of the same scans from a fresh state: plain (the wall
-time; ``--repeats N`` makes N of them and takes their median), staged (stage timing adds synchronizations, so its own total is
-printed beside the stages) and profiled (device-busy time only: the
-profiler inflates the host side).
+Replays of the same scans from a fresh state: plain (the wall time,
+eager and graph in turns; ``--repeats N`` makes N of each and takes
+their medians), staged (eager; stage timing adds synchronizations, so
+its own total is printed beside the stages) and profiled (graph and
+eager; device-busy time only: the profiler inflates the host side).
 """
 
 from __future__ import annotations
@@ -132,12 +140,14 @@ def main(argv=None) -> int:
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
 
-    def replay(staged=False, profiled=False):
-        """Init + warm-up, then the measured scans (the only ones staged
-        or profiled); returns (ms per scan, profiler or None)."""
+    def replay(staged=False, profiled=False, graph=False):
+        """Init + warm-up (the graph's capture), then the measured scans
+        (the only ones staged or profiled); returns (ms per scan, profiler
+        or None)."""
+        step = pipeline.step if graph else pipeline.step_eager
         state = pipeline.init_state(cfg, seq.points[0], seq.mask[0], 0.0, device=dev)
         for i in range(1, 1 + args.warmup):
-            state, _ = pipeline.step(cfg, state, seq.points[i], seq.mask[i], float(seq.stamps[i]))
+            state, _ = step(cfg, state, seq.points[i], seq.mask[i], float(seq.stamps[i]))
         sync()
         counting[0] = staged
         segmentation.SWEEPS.clear()
@@ -148,25 +158,34 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         with ctx as prof:
             for i in scans:
-                state, _ = pipeline.step(cfg, state, seq.points[i], seq.mask[i], float(seq.stamps[i]))
+                state, _ = step(cfg, state, seq.points[i], seq.mask[i], float(seq.stamps[i]))
             sync()
         counting[0] = False
         return (time.perf_counter() - t0) * 1e3 / len(scans), prof
 
-    plain_runs = [replay()[0] for _ in range(args.repeats)]
-    plain_ms = statistics.median(plain_runs)
+    plain_runs = {"eager": [], "graph": []}
+    for r in range(args.repeats):
+        for kind in (("eager", "graph") if r % 2 == 0 else ("graph", "eager")):
+            ms = replay(graph=kind == "graph")[0]
+            plain_runs[kind].append(ms)
+            if kind == "eager" and r == 0:
+                counted = (dict(segmentation.SWEEPS), dict(hungarian.HOST_READS),
+                           dict(nn_cuda.LAUNCHES), dict(calls))
+    plain_ms = {k: statistics.median(v) for k, v in plain_runs.items()}
     per_scan = lambda c: {k: v / len(scans) for k, v in sorted(c.items())}  # noqa: E731
+    sweeps, reads, launched, calls_ = counted
     counters = dict(
-        ccl_per_scan=per_scan(segmentation.SWEEPS),
-        jv_host_reads_per_scan=per_scan(hungarian.HOST_READS),
-        kernel_launches_by_wrapper_per_scan=per_scan(nn_cuda.LAUNCHES),
-        tracker_updates_per_scan=calls["tracker_update"] / len(scans),
-        covariance_calls_per_scan=calls["covariances"] / len(scans),
+        ccl_per_scan_eager=per_scan(sweeps),
+        jv_host_reads_per_scan_eager=per_scan(reads),
+        kernel_launches_by_wrapper_per_scan_eager=per_scan(launched),
+        tracker_updates_per_scan=calls_.get("tracker_update", 0) / len(scans),
+        covariance_calls_per_scan=calls_.get("covariances", 0) / len(scans),
     )
     staged_ms, _ = replay(staged=True)
     for m, n, fn in originals:
         setattr(m, n, fn)
-    _, prof = replay(profiled=True)
+    pipeline.clear_graphs()  # captured with the stage wrappers
+    profs = {kind: replay(profiled=True, graph=kind == "graph")[1] for kind in ("graph", "eager")}
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -180,35 +199,39 @@ def main(argv=None) -> int:
         scans=len(scans),
         **counters,
         stage_ms_per_scan={k: v * 1e3 / len(scans) for k, v in sorted(stages.items())},
-        wall_ms_per_scan=plain_ms,
-        wall_ms_per_scan_runs=plain_runs,
-        staged_wall_ms_per_scan=staged_ms,
+        staged_wall_ms_per_scan_eager=staged_ms,
     )
-    kernels = [
-        e for e in prof.events()
-        if e.device_type == torch.autograd.DeviceType.CUDA
-    ]
-    busy, _ = profiling.device_busy_us(prof)  # union of kernel intervals (us)
-    by_name = collections.Counter()
-    launches = collections.Counter()
-    for e in kernels:
-        by_name[e.name] += e.time_range.end - e.time_range.start
-        launches[e.name] += 1
-    own_us = {k: sum(t for n, t in by_name.items() if k in n)
-              for k in ("nn1_kernel", "knn_classes_kernel", "jv_solve_kernel", "plane_reg_kernel")}
-    report.update(
-        # the hand-written kernels' device time and share of busy time
-        hand_written_kernels={k: dict(ms_per_scan=v / 1e3 / len(scans), share_of_busy=v / busy if busy else None)
-                              for k, v in own_us.items()},
-        device_busy_ms_per_scan=busy / 1e3 / len(scans),
-        # busy time under the profiler, wall time of the plain replay
-        device_idle_share=1.0 - busy / 1e3 / len(scans) / plain_ms,
-        kernel_launches_per_scan=len(kernels) / len(scans),
-        top_kernels=[
-            dict(name=n[:80], ms_per_scan=t / 1e3 / len(scans), calls_per_scan=launches[n] / len(scans))
-            for n, t in by_name.most_common(12)
-        ],
-    )
+    report["graphs"] = pipeline.graph_stats()
+    for kind, prof in profs.items():
+        kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy, _ = profiling.device_busy_us(prof)  # union of kernel intervals (us)
+        by_name = collections.Counter()
+        launches = collections.Counter()
+        for e in kernels:
+            by_name[e.name] += e.time_range.end - e.time_range.start
+            launches[e.name] += 1
+        api = collections.Counter(e.name for e in prof.events()
+                                  if e.name in ("cudaLaunchKernel", "cudaGraphLaunch", "cudaMemcpyAsync"))
+        own_us = {k: sum(t for n, t in by_name.items() if k in n)
+                  for k in ("nn1_kernel", "knn_classes_kernel", "jv_solve_kernel", "plane_reg_kernel",
+                            "set_cond_kernel")}
+        report[kind] = dict(
+            wall_ms_per_scan=plain_ms[kind], wall_ms_per_scan_runs=plain_runs[kind],
+            # the hand-written kernels' device time and share of busy time
+            hand_written_kernels={k: dict(ms_per_scan=v / 1e3 / len(scans),
+                                          calls_per_scan=sum(c for n, c in launches.items() if k in n) / len(scans),
+                                          share_of_busy=v / busy if busy else None)
+                                  for k, v in own_us.items()},
+            device_busy_ms_per_scan=busy / 1e3 / len(scans),
+            # busy time under the profiler, wall time of the plain replay
+            device_idle_share=1.0 - busy / 1e3 / len(scans) / plain_ms[kind],
+            kernel_launches_per_scan=len(kernels) / len(scans),
+            host_launch_calls_per_scan={k: v / len(scans) for k, v in sorted(api.items())},
+            top_kernels=[
+                dict(name=n[:80], ms_per_scan=t / 1e3 / len(scans), calls_per_scan=launches[n] / len(scans))
+                for n, t in by_name.most_common(12)
+            ],
+        )
     print(json.dumps(report, indent=1))
     return 0
 
