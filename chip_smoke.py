@@ -116,16 +116,32 @@ Phases, in order; any failure exits non-zero and prints no result:
    width (16,384 x 65,536: the sources, targets and guesses of phase 5's
    last 8 S2M calls, recorded there; guess b moved by (0.03 (b + 1),
    -0.02 b, 0) m and turned by 0.005 b rad, so every stream starts off
-   its optimum by its own amount) against 8 single-stream ``gicp.align``
-   calls. Pass: iterations and inliers equal, translation within 1e-5 m,
-   rotation within 1e-6; exactly one ``nn1_sparse_batched`` launch per
-   batched linearization and no ``nn1_sparse`` launch. Times:
-   registrations/s at B = 1 and B = 8 (CUDA events), and the batched
+   its optimum by its own amount). On the card the aligner replays a
+   captured graph of ``gicp.align_batch`` (its loops conditional nodes).
+   Pass: the replay bit-equal to the eager ``gicp.align_batch`` in every
+   field, under ``torch.cuda.set_sync_debug_mode("error")``; against 8
+   single-stream ``gicp.align`` calls iterations and inliers equal,
+   translation within 1e-5 m, rotation within 1e-6; the replay's device
+   counts exactly one ``nn1_sparse_batched`` launch per batched
+   linearization and no ``nn1_sparse`` launch. Times (CUDA events, after
+   capture): registrations/s at B = 1 and B = 8, graph and eager in
+   turns, each graph's capture seconds and pool bytes, and the batched
    entry's device ms at the final poses against its bound.
 14. ``parallel.replay.replay_batch``: B = 4 streams x 8 scans of
-   ``bench_config()``, started at scans 0, 8, 16 and 24. Pass: poses
-   within 2e-4 m of single-stream ``pipeline.step`` runs of each stream
-   on the card.
+   ``bench_config()``, started at scans 0, 8, 16 and 24, and the batched
+   step under it (``sharding.batched_pipeline_step``: one graph per call,
+   each stream a branch of it). Pass: each stream's state and outputs
+   bit-equal to that stream run alone through ``pipeline.step``'s graph,
+   every leaf after every scan, and ``replay_batch``'s poses and final states those of the
+   batched step; every replay under ``set_sync_debug_mode("error")``; one
+   ``cudaGraphLaunch`` per B-stream step (profiler); exact device counts:
+   one ``jv_solve`` per tracker update, one tracker update and at least
+   three ``nn1_sparse`` per stream scan. Times: ms per stream scan at
+   B = 1, 4 and 8 (B = 8: streams started at 0, 8, ..., 56, scans 1-4),
+   beside the single graph step and the streams in turn through
+   ``step_eager`` (the host-driven form of the batched step), in turns; device busy
+   ms and idle share at B = 4 (a profiled step against the unprofiled
+   wall); each batched graph's capture seconds and pool bytes.
 15. Point-parallel on 2 ranks: two spawned processes, a gloo group on the
    one card (NCCL refuses two ranks on one device), each under a time
    limit. (a) ``sharding.batched_align(point_sharded=True)`` of phase
@@ -240,7 +256,6 @@ ATE_BAR_M = 0.05  # BASELINE.md's 5 cm
 RESUME_ATOL_M = 1e-5
 CHUNK_ATOL_M = 1e-6  # step_chunk against the same steps, one by one
 BATCH_T_ATOL_M, BATCH_R_ATOL = 1e-5, 1e-6  # batched_align against single aligns
-REPLAY_BATCH_ATOL_M = 2e-4  # tests/test_parallel.py:220-222's bar
 CHUNK_K, ALIGN_B, STREAMS, STREAM_SCANS = 8, 8, 4, 8
 GRAPH_SCANS, WATCHDOG_SCANS = 16, 7  # phase 17: graph vs eager steps; the watchdog's replay
 PT, PT_SCANS, PT_TIMEOUT_S = 2, 8, 480  # phase 15: ranks on the one card, scans, each rank's limit
@@ -1713,30 +1728,43 @@ def align_problems(calls):
 
 def batched_align_phase(problems, card):
     """Phase 13: ``batched_align`` of phase 5's last 8 S2M registrations
-    against 8 single-stream aligns, on the card."""
+    on the card, a graph replay, against the eager ``gicp.align_batch``
+    (bit for bit) and 8 single-stream aligns."""
     import torch
 
     from dynamic_direct_lidar_odometry_tpu_torch.core import se3
     from dynamic_direct_lidar_odometry_tpu_torch.ops import gicp, nn_cuda
     from dynamic_direct_lidar_odometry_tpu_torch.parallel import sharding
+    from dynamic_direct_lidar_odometry_tpu_torch.utils import profiling
 
     batch, settings, singles = problems
     calls = [(tuple(x[b] for x in batch), settings) for b in range(ALIGN_B)]
-    mesh = sharding.make_mesh()
-    aligner = sharding.batched_align(mesh, settings)
-    nn_cuda.LAUNCHES.clear()
-    res = aligner(*batch)
+    sharding.clear_graphs()
+    aligner = sharding.batched_align(sharding.make_mesh(), settings)
+    eager = gicp.align_batch(*batch, settings)
+    aligner(*batch)  # the warm-up and the capture
     torch.cuda.synchronize()
-    got = dict(nn_cuda.LAUNCHES)
+    with profiling.device_counts("cuda") as got:
+        with sync_free():
+            res = aligner(*batch)
+    got = dict(got)
+    differ = _bits_differ(res, eager)
     iters = res.iterations.tolist()
     lin = max(iters) + (1 if settings.compute_residuals else 0)
     t_err = max(float((res.T[b, :3, 3] - s.T[:3, 3]).abs().max()) for b, s in enumerate(singles))
     r_err = max(rot_err(res.T[b, :3, :3].cpu(), s.T[:3, :3].cpu()) for b, s in enumerate(singles))
 
-    def per_s(B):
+    def per_s(B, fn):
         args = [x[:B] for x in batch]
-        return B / (cuda_ms(lambda: gicp.align_batch(*args, settings), reps=5) / 1e3)
+        return B / (cuda_ms(lambda: fn(*args), reps=5) / 1e3)
 
+    # graphs at B = 1 and B = ALIGN_B (each captured at its first call,
+    # which cuda_ms's warm-up makes), against the eager call, in turns
+    rates = {}
+    for kind in ("eager", "graph", "graph", "eager"):
+        fn = aligner if kind == "graph" else (lambda *a: gicp.align_batch(*a, settings))
+        for B in (1, ALIGN_B):
+            rates.setdefault(f"{kind}_b{B}", []).append(per_s(B, fn))
     single_ms = cuda_ms(lambda: [gicp.align(*c[0], settings) for c in calls], reps=3) / ALIGN_B
     # the batched entry at the final poses: device time against B x the single call's bound
     src_t = torch.where(batch[1][..., None], se3.transform_points(res.T, batch[0]), 1.0e6)
@@ -1748,57 +1776,177 @@ def batched_align_phase(problems, card):
     counts = nn_cuda._tile_overlap(q, prep.t_lo, prep.t_hi, r, 1024).sum()
     b_ms, b_by = bound_ms(float(counts) * 1024 * 512, (q.numel() + prep.tt.numel()) * 4 + 8 * q.shape[0] * q.shape[1])
     rec = dict(
-        B=ALIGN_B, card=card, iterations=iters, single_iterations=[int(s.iterations) for s in singles],
+        B=ALIGN_B, card=card, graph_vs_eager_bits_differ=differ,
+        iterations=iters, single_iterations=[int(s.iterations) for s in singles],
         inliers=res.num_inliers.tolist(), single_inliers=[int(s.num_inliers) for s in singles],
         translation_max_abs_m=t_err, rotation_max=r_err, launches=got, batched_linearizations=lin,
-        registrations_per_s_b1=per_s(1), registrations_per_s_b8=per_s(ALIGN_B),
-        registrations_per_s_single_loop=1e3 / single_ms,
+        registrations_per_s={k: statistics.median(v) for k, v in rates.items()},
+        registrations_per_s_runs=rates, registrations_per_s_single_loop=1e3 / single_ms,
+        graphs=sharding.graph_stats(),
         batched_entry_ms=dev_t["ms"], batched_entry_kernel_ms=dev_t["kernel_ms"],
         batched_entry_bound_ms=b_ms, batched_entry_bound_by=b_by,
     )
     print("batched_align " + json.dumps(rec), flush=True)
+    check(not differ, f"batched_align's graph differs from the eager align_batch in {differ}")
     check(iters == rec["single_iterations"], "batched_align iterations differ from single aligns")
     check(rec["inliers"] == rec["single_inliers"], "batched_align inliers differ from single aligns")
     check(t_err <= BATCH_T_ATOL_M and r_err <= BATCH_R_ATOL,
           f"batched_align differs from single aligns by {t_err} m, {r_err} rad")
     check(got.get("nn1_sparse_batched", 0) == lin and got.get("nn1_sparse", 0) == 0,
-          f"batched_align launched {got} for {lin} batched linearizations")
+          f"a batched_align replay launched {got} for {lin} batched linearizations")
     return got.get("nn1_sparse_batched", 0)
 
 
 def replay_batch_phase(cfg, seq, card):
-    """Phase 14: ``replay_batch`` of 4 streams x 8 scans against each
-    stream run alone through ``pipeline.step`` on the card."""
+    """Phase 14: ``replay_batch`` of 4 streams x 8 scans, and the batched
+    step under it (one graph, a branch per stream), against each stream
+    run alone through ``pipeline.step``'s graph on the card."""
     import torch
 
     from dynamic_direct_lidar_odometry_tpu_torch import pipeline
-    from dynamic_direct_lidar_odometry_tpu_torch.ops import nn_cuda
-    from dynamic_direct_lidar_odometry_tpu_torch.parallel import replay
+    from dynamic_direct_lidar_odometry_tpu_torch.core import tree
+    from dynamic_direct_lidar_odometry_tpu_torch.parallel import replay, sharding
+    from dynamic_direct_lidar_odometry_tpu_torch.utils import profiling
+
+    dev = torch.device("cuda", 0)
+    mesh = sharding.make_mesh()
+
+    def streams(starts, n):
+        sl = [slice(s0, s0 + n) for s0 in starts]
+        return (np.stack([seq.points[s] for s in sl]), np.stack([seq.mask[s] for s in sl]),
+                np.stack([seq.stamps[s] for s in sl]).astype(np.float32))
+
+    def on_card(x):
+        return torch.as_tensor(x, device=dev)
+
+    def run(starts, n):
+        """ms per stream scan of the batched step over scans 1..n-1 of the
+        streams from their init, between CUDA events, once the step's
+        graph exists."""
+        p, m, t = streams(starts, n)
+        st = sharding.batched_init_state(cfg, p[:, 0], m[:, 0], t[:, 0], device=dev)
+        p, m, t = on_card(p), on_card(m), on_card(t)
+        step(st, p[:, 1], m[:, 1], t[:, 1])  # the graph, captured if new
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        a.record()
+        for k in range(1, n):
+            st, _ = step(st, p[:, k], m[:, k], t[:, k])
+        b.record()
+        b.synchronize()
+        return a.elapsed_time(b) / (len(starts) * (n - 1))
 
     starts = [STREAM_SCANS * b for b in range(STREAMS)]
-    sl = [slice(s0, s0 + STREAM_SCANS) for s0 in starts]
-    pts = np.stack([seq.points[s] for s in sl])
-    msk = np.stack([seq.mask[s] for s in sl])
-    ts = np.stack([seq.stamps[s] for s in sl])
-    nn_cuda.LAUNCHES.clear()
+    sharding.clear_graphs()
+    p, m, t = streams(starts, STREAM_SCANS)
     t0 = time.perf_counter()
-    res = replay.replay_batch(cfg, pts, msk, ts)
-    wall = time.perf_counter() - t0
-    launches = nn_cuda.LAUNCHES["nn1_sparse"]
-    err = 0.0
-    for b in range(STREAMS):
-        st = pipeline.init_state(cfg, pts[b, 0], msk[b, 0], float(np.float32(ts[b, 0])))
+    res = replay.replay_batch(cfg, p, m, t)  # captures the B = 4 graph
+    first_wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res = replay.replay_batch(cfg, p, m, t)
+    replay_ms = (time.perf_counter() - t0) * 1e3 / (STREAMS * (STREAM_SCANS - 1))
+
+    # the batched step (the graph replay_batch captured), counted on the
+    # device, every replay sync-free
+    step = sharding.batched_pipeline_step(cfg, mesh)
+    st0 = sharding.batched_init_state(cfg, p[:, 0], m[:, 0], t[:, 0], device=dev)
+    pd, md, td = on_card(p), on_card(m), on_card(t)
+    batched, st = [], st0
+    with main_path_counts("replay_batch") as counted:
         for k in range(1, STREAM_SCANS):
-            st, out = pipeline.step(cfg, st, pts[b, k], msk[b, k], float(np.float32(ts[b, k])))
-            err = max(err, float(np.abs(out.odom.pose.cpu().numpy() - res.poses[b, k - 1]).max()))
-    rec = dict(streams=STREAMS, scans=STREAM_SCANS, starts=starts, max_abs_m=err,
-               ms_per_stream_scan=wall * 1e3 / (STREAMS * (STREAM_SCANS - 1)),
-               num_keyframes=res.num_keyframes.tolist(), launches=dict(nn1_sparse=launches), card=card)
+            with sync_free():
+                st, out = step(st, pd[:, k], md[:, k], td[:, k])
+            batched.append((st, out))
+    # each stream alone through pipeline.step's graph: every leaf, every scan
+    differ = {}
+    for b in range(STREAMS):
+        one = pipeline.init_state(cfg, p[b, 0], m[b, 0], float(t[b, 0]), device=dev)
+        for k in range(1, STREAM_SCANS):
+            one, out = pipeline.step(cfg, one, pd[b, k], md[b, k], td[b, k])
+            d = _bits_differ((one, out), (tree.index(batched[k - 1][0], b),
+                                          tree.index(batched[k - 1][1], b)))
+            if d:
+                differ[f"stream {b} scan {k}"] = d
+    final_equal = all(
+        _digest(tree.index(batched[-1][0], b)) == _digest(tree.index(res.final_states, b))
+        for b in range(STREAMS))
+    poses = torch.stack([o.odom.pose for _, o in batched], dim=1).cpu().numpy()
+
+    def profiled(fn, st, n):
+        """Per step of ``st = fn(st, k)[0]`` over scans 1..n (one profiler
+        session): graph launches, device busy ms (the union of the device
+        operations' intervals), the operations' summed ms (above busy
+        where branches overlap) and the span from the first operation to
+        the last."""
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for k in range(1, n + 1):
+                st = fn(st, k)[0]
+            torch.cuda.synchronize()
+        dev_ev = [e.time_range for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        return dict(graph_launches=sum(1 for e in prof.events() if e.name == "cudaGraphLaunch") / n,
+                    busy_ms=profiling.device_busy_us(prof)[0] / 1e3 / n,
+                    summed_ms=sum(r.end - r.start for r in dev_ev) / 1e3 / n,
+                    span_ms=(max(r.end for r in dev_ev) - min(r.start for r in dev_ev)) / 1e3 / n)
+
+    # one graph launch per B-stream step; device busy against the wall
+    n = STREAM_SCANS - 1
+    prof_b4 = profiled(lambda st, k: step(st, pd[:, k], md[:, k], td[:, k]), st0, n)
+    one0 = pipeline.init_state(cfg, p[0, 0], m[0, 0], float(t[0, 0]), device=dev)
+    prof_single = profiled(lambda st, k: pipeline.step(cfg, st, pd[0, k], md[0, k], td[0, k]), one0, n)
+    launches = prof_b4["graph_launches"]
+
+    # ms per stream scan: B = 1, 4 and 8 (B = 8 over scans 1-4), the
+    # single graph step, and the streams in turn through step_eager (the
+    # host-driven form of the batched step), in turns
+    timings = collections.defaultdict(list)
+    for rnd in range(2):
+        timings["b4"].append(run(starts, STREAM_SCANS))
+        timings["b1"].append(run(starts[:1], STREAM_SCANS))
+        one = pipeline.init_state(cfg, p[0, 0], m[0, 0], float(t[0, 0]), device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for k in range(1, STREAM_SCANS):
+            one, _ = pipeline.step(cfg, one, pd[0, k], md[0, k], td[0, k])
+        torch.cuda.synchronize()
+        timings["single_graph_step"].append((time.perf_counter() - t0) * 1e3 / (STREAM_SCANS - 1))
+        if rnd == 0:
+            sts = [tree.index(st0, b) for b in range(STREAMS)]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for k in range(1, STREAM_SCANS):
+                sts = [pipeline.step_eager(cfg, sts[b], pd[b, k], md[b, k], td[b, k])[0]
+                       for b in range(STREAMS)]
+            torch.cuda.synchronize()
+            timings["eager_streams_in_turn"].append(
+                (time.perf_counter() - t0) * 1e3 / (STREAMS * (STREAM_SCANS - 1)))
+    for _ in range(2):
+        timings["b8"].append(run([STREAM_SCANS * b for b in range(8)], 5))
+    wall_b4 = statistics.median(timings["b4"]) * STREAMS
+    rec = dict(
+        streams=STREAMS, scans=STREAM_SCANS, starts=starts, card=card,
+        bits_differ_from_single_graph_steps=differ, final_states_equal_replay_batch=final_equal,
+        ms_per_stream_scan={k: statistics.median(v) for k, v in timings.items()},
+        ms_per_stream_scan_runs=dict(timings), replay_batch_ms_per_stream_scan=replay_ms,
+        replay_batch_first_call_s=first_wall, graph_launches_per_step=launches,
+        profile_b4_per_step=prof_b4, profile_single_graph_step=prof_single,
+        device_idle_share_b4_unprofiled_wall=1.0 - prof_b4["busy_ms"] / wall_b4,
+        device_idle_share_b4_profiled_span=1.0 - prof_b4["busy_ms"] / prof_b4["span_ms"],
+        graphs=sharding.graph_stats(), launches=counted,
+        num_keyframes=res.num_keyframes.tolist(),
+    )
     print("replay_batch " + json.dumps(rec), flush=True)
+    n_steps = STREAMS * (STREAM_SCANS - 1)
     check(res.poses.shape == (STREAMS, STREAM_SCANS - 1, 3), f"replay_batch poses {res.poses.shape}")
-    check(err <= REPLAY_BATCH_ATOL_M, f"replay_batch differs from single streams by {err} m")
-    check(launches >= 3 * STREAMS * (STREAM_SCANS - 1), f"nn1_sparse launched {launches} times")
-    return launches
+    check(not differ, f"the batched step differs from single graph steps: {differ}")
+    check(np.array_equal(res.poses, poses) and final_equal,
+          "replay_batch differs from the batched step it runs")
+    check(launches == 1, f"a batched step made {launches} graph launches")
+    check(counted["tracker_updates"] == n_steps and counted["nn1_sparse"] >= 3 * n_steps,
+          f"the batched step's device counts: {counted}")
+    return counted["nn1_sparse"]
 
 
 def _digest(tree) -> str:

@@ -21,6 +21,14 @@ graph's private pool, on the capture stream and on the body streams
 alike. A tensor allocated inside a body never outlives the body: results
 leave a body only through the carry.
 
+:func:`branches` is ``jax.vmap`` over independent streams of work: in a
+capture, each of its calls is a branch of the graph, forked from the
+capture stream and joined back to it, on a stream of its own with body
+streams of its own (the allocator reuses a freed block only on the stream
+that freed it, so two branches that run at once never share memory) and
+a row of the device counts of its own (``utils.profiling.count_row``).
+Outside a capture the calls run one after another.
+
 :class:`Graph` captures a function once and replays it on new inputs:
 the inputs are copied into its static buffers and the outputs cloned out
 of it, so a returned tensor never aliases memory that the next replay
@@ -33,6 +41,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import ctypes
+import os
 import threading
 import time
 from typing import Any, Callable, List, Sequence
@@ -47,6 +56,8 @@ from dynamic_direct_lidar_odometry_tpu_torch.utils import profiling
 PREDICATE_READS: collections.Counter = collections.Counter()
 # nesting of bodies a capture supports (a body stream per level)
 MAX_DEPTH = 4
+# branches a capture supports (a count row each, after the row outside them)
+MAX_BRANCHES = profiling.MAX_COUNT_ROWS - 1
 
 _TLS = threading.local()
 
@@ -73,10 +84,14 @@ def _check(err: int, what: str) -> None:
 
 class _Capture:
     """The capture under way on this thread: a body stream per nesting
-    level, and the level being captured."""
+    level, the level being captured, and each branch's set of streams
+    (:func:`branches`)."""
 
-    def __init__(self, device: torch.device):
-        self.streams = streams(device)[1:]
+    def __init__(self, device: torch.device, n_branches: int = 0):
+        if not 0 <= n_branches <= MAX_BRANCHES:
+            raise ValueError(f"control: {n_branches} branches (at most {MAX_BRANCHES})")
+        self.own = self.streams = streams(device)[1:]
+        self.branch_sets = [streams(device, b + 1) for b in range(n_branches)]
         self.depth = 0
 
 
@@ -180,23 +195,64 @@ def cond(pred: torch.Tensor, true_fn: Callable[..., None],
     return carry
 
 
+def branches(device: torch.device, n: int, fn: Callable[[int], Any]) -> list:
+    """``[fn(b) for b in range(n)]``, each call a branch of its own.
+
+    In a capture (:func:`capture` with ``branches >= n``) the calls are n
+    independent branches of the graph, which the card may run at once:
+    each forks from the capture stream, runs on its branch's own stream
+    with its own body streams and count row, and joins back before the
+    capture goes on. Branches do not nest, and are not taken inside a
+    loop or branch body. Elsewhere (the CPU, the eager driver) the calls
+    run one after another on the current stream."""
+    device = torch.device(device)
+    if device.type != "cuda" or not torch.cuda.is_current_stream_capturing():
+        return [fn(b) for b in range(n)]
+    cap = getattr(_TLS, "capture", None)
+    if cap is None:
+        raise RuntimeError("control.branches inside a CUDA graph capture that control.capture did not begin")
+    if cap.depth or cap.streams is not cap.own:
+        raise RuntimeError("control.branches inside a loop, a branch body or another branch")
+    if n > len(cap.branch_sets):
+        raise RuntimeError(f"control.branches: {n} branches in a capture begun with {len(cap.branch_sets)}")
+    main = torch.cuda.current_stream()
+    fork = main.record_event()
+    out = []
+    try:
+        for b in range(n):
+            own = cap.branch_sets[b]
+            own[0].wait_event(fork)
+            cap.streams = own[1:]
+            with torch.cuda.stream(own[0]), profiling.count_row(b + 1):
+                out.append(fn(b))
+    finally:
+        cap.streams = cap.own
+    for own in cap.branch_sets[:n]:  # the join
+        main.wait_stream(own[0])
+    return out
+
+
 _STREAMS: dict = {}
 
 
-def streams(device: torch.device) -> List[torch.cuda.ExternalStream]:
+def streams(device: torch.device, index: int = 0) -> List[torch.cuda.ExternalStream]:
     """This process's own streams on ``device`` (created by
     ``csrc/graph_cond.cu``, never drawn from torch's pool, whose streams
-    other code also takes): [0] captures a graph, [1 + d] the bodies at
-    nesting level d."""
-    key = device.index if device.index is not None else torch.cuda.current_device()
+    other code also takes), in sets: set 0's [0] captures a graph, set
+    b + 1's [0] runs branch b (:func:`branches`); a set's [1 + d] the
+    bodies at nesting level d."""
+    key = (device.index if device.index is not None else torch.cuda.current_device(), index)
     if key not in _STREAMS:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("control.streams: new streams inside a capture (their cuBLAS "
+                               "workspaces must be made outside it)")
         lib = _lib()
         made = []
-        with torch.cuda.device(key):
+        with torch.cuda.device(key[0]):
             for _ in range(MAX_DEPTH + 1):
                 ptr = ctypes.c_void_p(0)
                 _check(lib.ddlo_stream_create(ctypes.byref(ptr)), "cudaStreamCreate")
-                made.append(torch.cuda.ExternalStream(ptr.value, device=torch.device("cuda", key)))
+                made.append(torch.cuda.ExternalStream(ptr.value, device=torch.device("cuda", key[0])))
         # torch gives each (cuBLAS handle, stream) its workspace at the
         # stream's first cuBLAS call; made inside a conditional body, that
         # allocation breaks the graph (its instantiation crashes). So each
@@ -207,7 +263,7 @@ def streams(device: torch.device) -> List[torch.cuda.ExternalStream]:
                 v = torch.ones(8, device=s.device)
                 torch.matmul(a, a), torch.bmm(a[None], a[None]), torch.dot(v, v)
                 torch.addmm(v, a, a)
-        torch.cuda.synchronize(key)
+        torch.cuda.synchronize(key[0])
         _STREAMS[key] = made
     return _STREAMS[key]
 
@@ -220,17 +276,19 @@ def _allocate_thread_to_pool(device_index: int, pool) -> None:
 
 
 @contextlib.contextmanager
-def capture(graph: torch.cuda.CUDAGraph, device: torch.device):
+def capture(graph: torch.cuda.CUDAGraph, device: torch.device, branches: int = 0):
     """Capture the block's work into ``graph``, on this process's capture
     stream of ``device`` (:func:`streams`), with
     ``capture_error_mode="thread_local"`` (another thread's CUDA work
-    does not void it) and conditional nodes for :func:`while_loop` and
-    :func:`cond`. Yields the graph's memory pool."""
+    does not void it), conditional nodes for :func:`while_loop` and
+    :func:`cond`, and up to ``branches`` branches for :func:`branches`
+    (their streams made before the capture begins). Yields the graph's
+    memory pool."""
     if getattr(_TLS, "capture", None) is not None:
         raise RuntimeError("control.capture: a capture is already under way on this thread")
     idx = device.index if device.index is not None else torch.cuda.current_device()
     device = torch.device("cuda", idx)
-    cap = _Capture(device)
+    cap = _Capture(device, branches)
     stream = streams(device)[0]
     profiling.counts_buffer(device)  # made before the capture, which holds its address
     torch.cuda.synchronize(device)
@@ -280,10 +338,11 @@ class Graph:
     eagerly on the capture stream (the warm-up: kernels built, cuBLAS's
     workspace set, caches filled), then captures it. The warm-up leaves
     the device counts (``utils.profiling.count``) as it found them: only
-    replays count. :meth:`__call__` copies new inputs into the static
-    buffers, replays, and returns a clone of the outputs."""
+    replays count. ``branches``: how many :func:`branches` ``fn`` takes.
+    :meth:`__call__` copies new inputs into the static buffers, replays,
+    and returns a clone of the outputs."""
 
-    def __init__(self, fn: Callable[..., Any], inputs: Sequence[Any]):
+    def __init__(self, fn: Callable[..., Any], inputs: Sequence[Any], branches: int = 0):
         first = next(x for x in _leaves(inputs) if isinstance(x, torch.Tensor))
         self.device = first.device
         self.stream = streams(self.device)[0]
@@ -299,7 +358,7 @@ class Graph:
         self.graph = torch.cuda.CUDAGraph()
         before = torch.cuda.memory_reserved(self.device)
         t0 = time.perf_counter()
-        with capture(self.graph, self.device) as self.pool:
+        with capture(self.graph, self.device, branches) as self.pool:
             self.static_out = fn(*self.static_in)
         torch.cuda.synchronize(self.device)
         self.capture_s = time.perf_counter() - t0
@@ -311,6 +370,48 @@ class Graph:
         self.graph.replay()
         self.replays += 1
         return tree.map_leaves(_clone, self.static_out)
+
+
+class GraphCache:
+    """Captured graphs by static signature (a kind, the static arguments,
+    the backends chosen by ``DDLO_NN_IMPL`` / ``DDLO_KNN_IMPL``, which
+    arguments are None, and every tensor leaf's shape, type and device),
+    each captured at its first call; at most ``size`` are kept (each
+    holds its memory pool), the least recently used dropped first."""
+
+    def __init__(self, size: int):
+        self.size = size
+        self.graphs: "collections.OrderedDict[tuple, Graph]" = collections.OrderedDict()
+
+    def get(self, kind: str, static: Any, fn: Callable[..., Any], args: tuple,
+            branches: int = 0) -> Graph:
+        key = (kind, static, os.environ.get("DDLO_NN_IMPL"), os.environ.get("DDLO_KNN_IMPL"),
+               tuple(a is None for a in args), _signature(args))
+        g = self.graphs.get(key)
+        if g is None:
+            while len(self.graphs) >= self.size:
+                self.graphs.popitem(last=False)
+            g = self.graphs[key] = Graph(fn, args, branches)
+        self.graphs.move_to_end(key)
+        return g
+
+    def clear(self) -> None:
+        """Drop every graph (and with it its memory pool)."""
+        self.graphs.clear()
+
+    def stats(self) -> list:
+        """Per graph: its kind, capture seconds, the memory its capture
+        reserved (bytes) and its replays."""
+        return [dict(kind=k[0], capture_s=g.capture_s, pool_bytes=g.pool_bytes,
+                     replays=g.replays) for k, g in self.graphs.items()]
+
+
+def _signature(x) -> tuple:
+    out = []
+    tree.map_leaves(
+        lambda t: out.append((tuple(t.shape), t.dtype, t.device) if isinstance(t, torch.Tensor)
+                             else t), x)
+    return tuple(out)
 
 
 def _leaves(x):

@@ -8,8 +8,8 @@ package. Each ``lax.while_loop`` of :func:`align` is a
 updated in place: on the card inside a captured graph a WHILE node
 decides on the device; outside one the loop reads only its predicate.
 All scalar LM state stays in f32 on the device, so the accept/reject
-decisions are the JAX package's arithmetic. :func:`align_batch` still
-drives its loops from the host (one read per iteration for the batch). The rounding-sensitive steps
+decisions are the JAX package's arithmetic; :func:`align_batch` runs its
+loops the same way, over "any stream still running". The rounding-sensitive steps
 (point transform, sums, inverse, solve, exp, compose) come from
 :func:`arithmetic`: on the host ``ops/gicp_xla.py`` (XLA's CPU order, the
 jitted JAX package's bits), on the card :data:`TORCH`.
@@ -490,11 +490,13 @@ def align_batch(
 
     A vmapped ``while_loop`` runs its body for every stream while any
     stream's predicate holds and keeps each finished stream's carry: so
-    here do the outer LM loop and the inner lambda loop, with a per-stream
-    ``active`` mask and ``torch.where`` on the carry. Each loop reads the
-    host once per iteration for the whole batch (is any stream still
-    running), and a stream's pose, iteration count and inliers are what
-    :func:`align` gives it. Every linearization is one batched pass; with
+    here do the outer LM loop and the inner lambda loop, each a
+    ``core/control.while_loop`` whose predicate is "any stream still
+    running" (on the card inside a captured graph a WHILE node decides it
+    on the device; outside one the loop reads only that predicate), with
+    a per-stream ``active`` mask and ``torch.where`` on the carry. A
+    stream's pose, iteration count and inliers are what :func:`align`
+    gives it. Every linearization is one batched pass; with
     ``nn_impl="sparse"`` on the card its correspondences are one launch of
     the batched sparse 1-NN kernel for all streams."""
     allsum = _allsum_fn(axis_name)
@@ -520,51 +522,66 @@ def align_batch(
 
     eye6 = torch.eye(6, dtype=f32, device=dev)
     eye4 = torch.eye(4, dtype=f32, device=dev).expand(Bn, 4, 4)
-    false = torch.zeros(Bn, dtype=torch.bool, device=dev)
+
+    def flags(n=1):
+        return (torch.zeros(Bn, dtype=torch.bool, device=dev) for _ in range(n))
 
     def lm_inner(run, x0, lam, y0, H, b, aux):
         """step_lm for the streams in ``run``, frozen per stream as in
-        :func:`align`'s inner loop."""
+        :func:`align`'s inner loop; ``lam`` is updated in place. Returns
+        (x, done, accepted, conv_on_reject, delta)."""
         nu = torch.full((Bn,), 2.0, dtype=f32, device=dev)
-        x, delta_done = x0, eye4
-        done, accepted, conv = false, false, false
-        j = 0
-        act = run
-        while j < s.lm_max_iterations and bool(act.any()):  # host sync
+        x, delta_done = x0.clone(), eye4.clone()
+        done, accepted, conv = flags(3)
+        act = run.clone()
+        j = torch.zeros((), dtype=torch.int32, device=dev)
+
+        def more(*_):
+            return (j < s.lm_max_iterations) & act.any()
+
+        def trial(*_):
             d = solve6_ldlt(H + lam[:, None, None] * eye6, -b, ar.sub)
             delta = ar.se3_exp(d)
             xi = ar.compose(delta, x)
             (yi,) = allsum(_compute_error(xi, src_pts, aux, ar))
             g = lam[:, None] * d - b
-            denom = torch.clamp_min(torch.stack([torch.dot(x, y) for x, y in zip(d, g)]), 1e-30)
+            denom = torch.clamp_min(torch.stack([torch.dot(u, v) for u, v in zip(d, g)]), 1e-30)
             rho = (y0 - yi) / denom
             reject = rho < 0
             acc = act & ~reject
             crj = act & reject & _is_converged(delta, s)
             grow = act & reject & ~crj
             t = 2.0 * rho - 1.0
-            lam = torch.where(acc, lam * torch.clamp_min(1.0 - t * t * t, 1.0 / 3.0),
-                              torch.where(grow, nu * lam, lam))
-            nu = torch.where(grow, 2.0 * nu, nu)
-            x = sel(acc, xi, x)
-            delta_done = sel(acc | crj, delta, delta_done)
-            done, accepted, conv = done | acc | crj, accepted | acc, conv | crj
-            act = act & ~(acc | crj)
-            j += 1
-        return x, lam, done, accepted, conv, delta_done
+            lam.copy_(torch.where(acc, lam * torch.clamp_min(1.0 - t * t * t, 1.0 / 3.0),
+                                  torch.where(grow, nu * lam, lam)))
+            nu.copy_(torch.where(grow, 2.0 * nu, nu))
+            x.copy_(sel(acc, xi, x))
+            delta_done.copy_(sel(acc | crj, delta, delta_done))
+            done.logical_or_(acc | crj)
+            accepted.logical_or_(acc)
+            conv.logical_or_(crj)
+            act.logical_and_(~(acc | crj))
+            j.add_(1)
 
-    x0 = guess.to(f32)
+        control.while_loop(more, trial, ())
+        return x, done, accepted, conv, delta_done
+
+    # the LM state of every stream, updated in place by the iterations
+    # (the vmapped lax.while_loop's carry; ``k`` counts the loop's passes)
+    x0 = guess.to(f32).clone()
     lm_lambda = torch.full((Bn,), -1.0, dtype=f32, device=dev)
     y_st = torch.zeros((Bn,), dtype=f32, device=dev)
-    H_st = eye6.expand(Bn, 6, 6)
-    converged, failed = false, false
+    H_st = eye6.expand(Bn, 6, 6).clone()
+    converged, failed = flags(2)
     it = torch.zeros((Bn,), dtype=torch.int32, device=dev)
-    trace = []
-    k = 0
-    while k < s.max_iterations:
+    k = torch.zeros((), dtype=torch.int32, device=dev)
+    trace = torch.zeros((Bn, s.max_iterations if s.record_trace else 0, 4, 4), dtype=f32, device=dev)
+
+    def running(*_):
+        return (k < s.max_iterations) & (~converged & ~failed).any()
+
+    def iteration(*_):
         run = ~converged & ~failed
-        if not bool(run.any()):  # host sync
-            break
         y0, H, b, aux = lin(x0)
         hmax = torch.amax(torch.abs(torch.diagonal(H, dim1=-2, dim2=-1)), dim=-1)
         lam = torch.where(lm_lambda < 0, s.lm_init_lambda_factor * hmax, lm_lambda)
@@ -575,26 +592,26 @@ def align_batch(
             delta = ar.se3_exp(d)
             x_new = ar.compose(delta, x0)
             conv_new = degenerate | _is_converged(delta, s)
-            failed_new = false
             H_new = H
         else:
-            x_new, lam, done, accepted, conv_rej, delta = lm_inner(
+            x_new, done, accepted, conv_rej, delta = lm_inner(
                 run & ~degenerate, x0, lam, y0, H, b, aux
             )
             x_new = sel(degenerate, x0, x_new)
             conv_new = degenerate | conv_rej | (accepted & _is_converged(delta, s))
-            failed_new = ~degenerate & ~done
+            failed.logical_or_(run & ~degenerate & ~done)
             H_new = sel(accepted, H, H_st)
-        y_st = torch.where(run, y0, y_st)
-        H_st = sel(run, H_new, H_st)
-        lm_lambda = torch.where(run, lam, lm_lambda)
-        converged = converged | (run & conv_new)
-        failed = failed | (run & failed_new)
-        x0 = sel(run, x_new, x0)
-        it = it + run.to(torch.int32)
+        y_st.copy_(torch.where(run, y0, y_st))
+        H_st.copy_(sel(run, H_new, H_st))
+        lm_lambda.copy_(torch.where(run, lam, lm_lambda))
+        converged.logical_or_(run & conv_new)
+        x0.copy_(sel(run, x_new, x0))
+        it.add_(run.to(torch.int32))
         if s.record_trace:
-            trace.append(x0)
-        k += 1
+            trace.index_copy_(1, k.long().reshape(1), x0[:, None])
+        k.add_(1)
+
+    control.while_loop(running, iteration, ())
 
     if s.compute_residuals:
         if s.nn_impl == "sparse":
@@ -615,12 +632,10 @@ def align_batch(
     if s.record_trace:
         # a stream's k-th pose is the k-th pass's; rows past its count
         # repeat its final pose, as align's do
-        rows = trace + [x0] * (s.max_iterations - len(trace))
-        pose_trace = torch.stack(
-            [sel(k < it, r, x0) for k, r in enumerate(rows)], dim=1
-        )
+        rows = torch.arange(s.max_iterations, device=dev) < it[:, None]
+        pose_trace = torch.where(rows[..., None, None], trace, x0[:, None])
     else:
-        pose_trace = torch.zeros((Bn, 0, 4, 4), dtype=f32, device=dev)
+        pose_trace = trace
     return GICPResult(
         T=x0,
         converged=converged & (num_inliers > 0),

@@ -10,6 +10,17 @@ on every tensor. Along ``pt`` each rank aligns its N/pt source rows
 against the whole target, and the normal equations, errors and inlier
 counts are summed over the group inside every LM iteration
 (``distributed.allsum``: rank order, the same bits on every rank).
+
+On the card the batch modes are captured CUDA graphs, the port's
+``jax.jit(shard_map(vmap(...)))``: :func:`batched_align`'s aligner
+replays a graph of ``gicp.align_batch`` (its loops conditional nodes
+over "any stream still running"), and :func:`batched_pipeline_step` a
+graph whose B streams are B independent branches
+(``core/control.branches``), each the single-stream step
+``pipeline._step``; one graph per static signature
+(:func:`graph_stats`, :func:`clear_graphs`), replayed with no host read.
+The CPU and the point-parallel modes (gloo collectives cannot be
+captured) run eagerly.
 """
 
 from __future__ import annotations
@@ -21,13 +32,18 @@ import torch.distributed as dist
 
 from dynamic_direct_lidar_odometry_tpu_torch import pipeline
 from dynamic_direct_lidar_odometry_tpu_torch.config import DDLOConfig
+from dynamic_direct_lidar_odometry_tpu_torch.core import control
 from dynamic_direct_lidar_odometry_tpu_torch.core import device as device_mod
-from dynamic_direct_lidar_odometry_tpu_torch.core import tree
+from dynamic_direct_lidar_odometry_tpu_torch.core import tree as tree_mod
 from dynamic_direct_lidar_odometry_tpu_torch.ops import gicp
 from dynamic_direct_lidar_odometry_tpu_torch.parallel import distributed
 
 DP_AXIS = "dp"
 PT_AXIS = "pt"
+# the batch modes' captured graphs (apart from pipeline's, so that they
+# never evict the single-stream step's)
+MAX_GRAPHS = 4
+_GRAPHS = control.GraphCache(MAX_GRAPHS)
 
 
 class Mesh(NamedTuple):
@@ -83,9 +99,21 @@ def make_mesh(
                 dp_index=rank // pt, pt_index=rank % pt, pt_group=group)
 
 
-def shard_batch(mesh: Mesh, batch: Any, point_sharded_leaves=()) -> Any:
+def shard_batch(mesh: Mesh, tree: Any, point_sharded_leaves=()) -> Any:
     """Place a batched container (or tensor / array) on the mesh's device."""
-    return tree.map_leaves(lambda x: torch.as_tensor(x).to(mesh.device), batch)
+    return tree_mod.map_leaves(lambda x: torch.as_tensor(x).to(mesh.device), tree)
+
+
+def clear_graphs() -> None:
+    """Drop every captured graph of the batch modes (and their pools)."""
+    _GRAPHS.clear()
+
+
+def graph_stats() -> list:
+    """Per cached graph of the batch modes: its kind ("align" or
+    "step"), capture seconds, the memory its capture reserved (bytes) and
+    its replays."""
+    return _GRAPHS.stats()
 
 
 def _point_slice(mesh: Mesh, n_points: int) -> slice:
@@ -110,11 +138,19 @@ def batched_align(
 
     ``point_sharded``: each rank takes its N/pt source rows (rank order)
     against the whole target, the sums ride the row's ``pt`` group, and
-    the residuals and correspondences are gathered back to full length."""
+    the residuals and correspondences are gathered back to full length.
+
+    On a CUDA mesh without ``point_sharded`` the aligner replays a
+    captured graph of :func:`gicp.align_batch` (one per static
+    signature, captured at its first call after one eager warm-up); the
+    result is a clone of the graph's outputs."""
     pt = mesh.shape[PT_AXIS] if point_sharded else 1
 
     def align(src_pts, src_mask, src_covs, tgt_pts, tgt_mask, tgt_covs, guess):
         args = shard_batch(mesh, (src_pts, src_mask, src_covs, tgt_pts, tgt_mask, tgt_covs, guess))
+        if pt == 1 and mesh.device.type == "cuda":
+            return _GRAPHS.get("align", settings, lambda *a: gicp.align_batch(*a, settings),
+                               args)(*args)
         if pt == 1:
             return gicp.align_batch(*args, settings)
         sl = _point_slice(mesh, args[0].shape[1])
@@ -131,7 +167,7 @@ def batched_align(
 def batched_init_state(cfg: DDLOConfig, raw_points, raw_mask, stamps, *, device="cuda"):
     """``pipeline.init_state`` of each of B streams, stacked into one
     batched state (every leaf with a leading B) on ``device``."""
-    return tree.stack([
+    return tree_mod.stack([
         pipeline.init_state(cfg, p, m, float(t), device=device)
         for p, m, t in zip(raw_points, raw_mask, stamps)
     ])
@@ -140,20 +176,34 @@ def batched_init_state(cfg: DDLOConfig, raw_points, raw_mask, stamps, *, device=
 def batched_pipeline_step(cfg: DDLOConfig, mesh: Mesh):
     """A batch-of-streams DDLO transition: call it with (states, raw_points
     (B,HW,3), raw_mask (B,HW), stamps (B,)) and get (states', outputs),
-    each stacked over B.
+    each stacked over B. Each stream's state and outputs are, bit for
+    bit, what ``pipeline.step`` gives that stream alone.
 
-    The streams advance one after another through ``pipeline.step_eager``
-    on the mesh's card: this mode stays eager (a truly batched step, one
-    graph for B streams, is ROADMAP.md queue 1 item 3)."""
+    On a CUDA mesh a call is one replay of a captured graph (one per
+    static signature, B included): the B streams are B branches of it
+    (``core/control.branches``), each the single-stream step on its own
+    copy of its stream's state and scan, which the card may run at once;
+    the join stacks their states and outputs. On the CPU the same body
+    runs eagerly, the streams one after another."""
+
+    def body(states, raw_points, raw_mask, stamps):
+        def stream(b):
+            one = tree_mod.map_leaves(torch.clone, (tree_mod.index(states, b), raw_points[b],
+                                                    raw_mask[b], stamps[b]))
+            return pipeline._step(cfg, *one)
+
+        new_states, outputs = zip(*control.branches(raw_points.device, raw_points.shape[0], stream))
+        return tree_mod.stack(new_states), tree_mod.stack(outputs)
 
     def step(states, raw_points, raw_mask, stamps):
-        raw_points, raw_mask, stamps = shard_batch(mesh, (raw_points, raw_mask, stamps))
-        results = [
-            pipeline.step_eager(cfg, tree.index(states, b), raw_points[b], raw_mask[b], stamps[b])
-            for b in range(raw_points.shape[0])
-        ]
-        new_states, outputs = zip(*results)
-        return tree.stack(new_states), tree.stack(outputs)
+        dev = mesh.device
+        args = (states, torch.as_tensor(raw_points, dtype=torch.float32, device=dev),
+                torch.as_tensor(raw_mask, dtype=torch.bool, device=dev),
+                torch.as_tensor(stamps, device=dev).to(torch.float32))
+        if dev.type != "cuda":
+            return body(*args)
+        B = args[1].shape[0]
+        return _GRAPHS.get("step", cfg, body, args, branches=B)(*args)
 
     return step
 
@@ -196,13 +246,13 @@ def point_parallel_pipeline_step(cfg: DDLOConfig, mesh: Mesh):
             torch.utils.deterministic.fill_uninitialized_memory = False  # no NaN fill of torch.empty
         try:
             results = [
-                stream_step(tree.index(states, b), raw_points[b], raw_mask[b], stamps[b])
+                stream_step(tree_mod.index(states, b), raw_points[b], raw_mask[b], stamps[b])
                 for b in range(raw_points.shape[0])
             ]
         finally:
             torch.use_deterministic_algorithms(prev[0], warn_only=prev[1])
             torch.utils.deterministic.fill_uninitialized_memory = fill
         new_states, outputs = zip(*results)
-        return tree.stack(new_states), tree.stack(outputs)
+        return tree_mod.stack(new_states), tree_mod.stack(outputs)
 
     return step

@@ -28,8 +28,6 @@ host-driven step; the CPU and the point-parallel step
 
 from __future__ import annotations
 
-import collections
-import os
 from typing import NamedTuple, Tuple
 
 import torch
@@ -112,7 +110,7 @@ def step(
     if dev.type != "cuda" or axis_name is not None:
         return _step(cfg, state, raw_points, raw_mask, stamp, hull_masks, axis_name, pt_size)
     args = (state, raw_points, raw_mask, stamp, hull_masks)
-    return _graph("step", cfg, args, lambda *a: _step(cfg, *a))(*args)
+    return _GRAPHS.get("step", cfg, lambda *a: _step(cfg, *a), args)(*args)
 
 
 def step_eager(cfg: DDLOConfig, state: DDLOState, raw_points, raw_mask, timestamp,
@@ -136,32 +134,10 @@ def _inputs(dev, raw_points, raw_mask, timestamp):
     return raw_points, raw_mask, stamp
 
 
-# captured graphs by static signature, least recently used first
-_GRAPHS: "collections.OrderedDict[tuple, control.Graph]" = collections.OrderedDict()
+# captured graphs by static signature (the configuration among it), at
+# most MAX_GRAPHS, the least recently used dropped first
 MAX_GRAPHS = 4
-
-
-def _signature(x) -> tuple:
-    out = []
-    tree.map_leaves(
-        lambda t: out.append((tuple(t.shape), t.dtype, t.device) if isinstance(t, torch.Tensor)
-                             else t), x)
-    return tuple(out)
-
-
-def _graph(kind: str, cfg: DDLOConfig, args: tuple, fn) -> control.Graph:
-    """The graph of ``fn`` for this static signature, captured at its first
-    call; at most :data:`MAX_GRAPHS` are kept (each holds its memory
-    pool), the least recently used dropped first."""
-    key = (kind, cfg, os.environ.get("DDLO_NN_IMPL"), os.environ.get("DDLO_KNN_IMPL"),
-           tuple(a is None for a in args), _signature(args))
-    g = _GRAPHS.get(key)
-    if g is None:
-        while len(_GRAPHS) >= MAX_GRAPHS:
-            _GRAPHS.popitem(last=False)
-        g = _GRAPHS[key] = control.Graph(fn, args)
-    _GRAPHS.move_to_end(key)
-    return g
+_GRAPHS = control.GraphCache(MAX_GRAPHS)
 
 
 def clear_graphs() -> None:
@@ -172,8 +148,7 @@ def clear_graphs() -> None:
 def graph_stats() -> list:
     """Per cached graph: its kind, capture seconds, the memory its capture
     reserved (bytes) and its replays."""
-    return [dict(kind=k[0], capture_s=g.capture_s, pool_bytes=g.pool_bytes,
-                 replays=g.replays) for k, g in _GRAPHS.items()]
+    return _GRAPHS.stats()
 
 
 def _step(cfg, state, raw_points, raw_mask, stamp, hull_masks=None, axis_name=None, pt_size=1):
@@ -297,7 +272,7 @@ def step_chunk(
     args = (state, pts_stack, mask_stack, ts_stack, hull_masks)
     if dev.type != "cuda":
         return _chunk(cfg, *args)
-    return _graph("chunk", cfg, args, lambda *a: _chunk(cfg, *a))(*args)
+    return _GRAPHS.get("chunk", cfg, lambda *a: _chunk(cfg, *a), args)(*args)
 
 
 def _chunk(cfg, state, pts_stack, mask_stack, ts_stack, hull_masks):

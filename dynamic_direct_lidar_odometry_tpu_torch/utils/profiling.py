@@ -24,6 +24,7 @@ from __future__ import annotations
 import contextlib
 import math
 import os
+import threading
 import time
 from typing import Any, Dict, Optional
 
@@ -186,23 +187,43 @@ def trace(dirname: str):
 # the wrappers' names, tracker updates, covariance calls, CCL sweeps) in
 # one buffer per device, made outside any capture and kept for the
 # process. A captured graph holds the buffer's address, so a replay, and
-# every turn of a conditional body, counts as it runs.
+# every turn of a conditional body, counts as it runs. An add is a
+# read-modify-write, not an atomic one: so the buffer has a row per
+# branch of a graph (``core/control.branches``, whose branches run at
+# once), row 0 outside them, and a read sums the rows.
 MAX_COUNT_KEYS = 64
+MAX_COUNT_ROWS = 65
 _SLOTS: Dict[str, int] = {}
 _COUNTS: Dict[str, torch.Tensor] = {}
+_ROW = threading.local()
 
 
 def counts_buffer(device) -> torch.Tensor:
-    """The device's count buffer (made at its first use, which must come
-    before any capture on ``device``)."""
+    """The device's count buffer, (rows, keys) (made at its first use,
+    which must come before any capture on ``device``)."""
     device = torch.device(device)
     key = str(device if device.type != "cuda" or device.index is not None
               else torch.device("cuda", torch.cuda.current_device()))
     if key not in _COUNTS:
         if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
             raise RuntimeError("profiling: the count buffer is made inside a capture")
-        _COUNTS[key] = torch.zeros(MAX_COUNT_KEYS, dtype=torch.int64, device=device)
+        _COUNTS[key] = torch.zeros((MAX_COUNT_ROWS, MAX_COUNT_KEYS), dtype=torch.int64,
+                                   device=device)
     return _COUNTS[key]
+
+
+@contextlib.contextmanager
+def count_row(row: int):
+    """This thread's counts go to ``row`` of the buffer inside the block
+    (a graph branch's own row; 0 outside every branch)."""
+    if not 0 <= row < MAX_COUNT_ROWS:
+        raise ValueError(f"profiling: count row {row} outside 0..{MAX_COUNT_ROWS - 1}")
+    prev = getattr(_ROW, "row", 0)
+    _ROW.row = row
+    try:
+        yield
+    finally:
+        _ROW.row = prev
 
 
 def count(device, key: str, n: Any = 1) -> None:
@@ -213,7 +234,7 @@ def count(device, key: str, n: Any = 1) -> None:
         if len(_SLOTS) >= MAX_COUNT_KEYS:
             raise RuntimeError(f"profiling: more than {MAX_COUNT_KEYS} count keys")
         _SLOTS[key] = len(_SLOTS)
-    counts_buffer(device)[_SLOTS[key]].add_(n)
+    counts_buffer(device)[getattr(_ROW, "row", 0), _SLOTS[key]].add_(n)
 
 
 @contextlib.contextmanager
@@ -229,5 +250,5 @@ def device_counts(device):
     finally:
         if buf.is_cuda:
             torch.cuda.synchronize(buf.device)
-        vals = buf.tolist()
+        vals = buf.sum(dim=0).tolist()
         out.update({k: vals[i] for k, i in sorted(_SLOTS.items()) if vals[i]})

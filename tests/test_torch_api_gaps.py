@@ -3,8 +3,11 @@ ported for its users and oracles: ``core/cloud.py``'s ``from_array``,
 ``empty``, ``Cloud.count`` and ``Cloud.sanitized``; ``core/se3.py``'s
 ``identity``; ``ops/segmentation.py``'s exact per-root gates
 ``segment_stats`` and ``compact_segments`` (the oracles of
-``segment_objects``, tests/test_detection_ops.py:176-260). Each against
-its JAX function on the same inputs."""
+``segment_objects``, tests/test_detection_ops.py:176-260); and
+``parallel/sharding.py``'s ``shard_batch`` called by its JAX keywords.
+Each against its JAX function on the same inputs."""
+
+import inspect
 
 import jax.numpy as jnp
 import numpy as np
@@ -17,8 +20,10 @@ from torch_parity import n
 from dynamic_direct_lidar_odometry_tpu.core import cloud as jcloud
 from dynamic_direct_lidar_odometry_tpu.core import se3 as jse3
 from dynamic_direct_lidar_odometry_tpu.ops import segmentation as jseg
+from dynamic_direct_lidar_odometry_tpu.parallel import sharding as jsharding
 from dynamic_direct_lidar_odometry_tpu_torch.core import cloud, se3
 from dynamic_direct_lidar_odometry_tpu_torch.ops import segmentation
+from dynamic_direct_lidar_odometry_tpu_torch.parallel import sharding
 
 
 @pytest.mark.parametrize("capacity", [None, 40])
@@ -95,3 +100,17 @@ def test_segment_stats_and_compact_segments_match_jax(scene):
     exact = segmentation.compact_segments(lab, got, max_objects=6)
     for a, b in zip((roots, valid, ps), exact):
         np.testing.assert_array_equal(n(a), n(b))
+
+
+def test_shard_batch_takes_jax_keywords():
+    """``shard_batch(mesh, tree=...)``: the parameters' names and order are
+    JAX's (read from its signature, not called), and a keyword call places
+    a container's leaves on the mesh's device."""
+    names = list(inspect.signature(sharding.shard_batch).parameters)
+    assert names == list(inspect.signature(jsharding.shard_batch).parameters)
+    mesh = sharding.make_mesh(1, devices=["cpu"])
+    x = (np.arange(6, dtype=np.float32).reshape(2, 3), None, [np.ones(2, bool)])
+    got = sharding.shard_batch(mesh, tree=x, point_sharded_leaves=())
+    assert isinstance(got[0], torch.Tensor) and got[1] is None
+    np.testing.assert_array_equal(n(got[0]), x[0])
+    np.testing.assert_array_equal(n(got[2][0]), x[2][0])
