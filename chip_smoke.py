@@ -10,8 +10,9 @@ Phases, in order; any failure exits non-zero and prints no result:
 1. Device: a CUDA card is required; prints its name and power limit
    (``nvidia-smi``) and checks that TF32 is off.
 2. Build: compiles ``csrc/nn1_sparse.cu``, ``csrc/knn_classes.cu``,
-   ``csrc/jv_solve.cu``, ``csrc/plane_reg.cu`` and ``csrc/graph_cond.cu``
-   with nvcc for sm_90a, one nvcc each, all started together.
+   ``csrc/jv_solve.cu``, ``csrc/plane_reg.cu``, ``csrc/graph_cond.cu`` and
+   ``csrc/lm_trial.cu`` with nvcc for sm_90a, one nvcc each, all started
+   together.
 3. Every kernel against its plain PyTorch version, on the card, at the
    main paths' shapes, with inputs built from the benchmark sequence:
    sparse 1-NN (S2M 16,384 x 65,536 at r = 2 and 6, S2S 16,384 x 16,384
@@ -48,7 +49,19 @@ Phases, in order; any failure exits non-zero and prints no result:
    an IF/ELSE branch captured into a graph and replayed on four inputs
    (0 to 27 inner turns), each replay without any synchronization,
    against the eager driver (``core/control.read_predicate``); pass: the
-   same turn counts and values.
+   same turn counts and values. GICP's lambda trial
+   (``csrc/lm_trial.cu``): ``gicp.lm_propose`` against
+   ``lm_propose_plain`` on ``tests/torch_lm_cases.py``'s systems (SPD,
+   near-singular, a guarded pivot, the small-angle branch, d = 0, GN's
+   zeroed streams; B = 1 and 8) and on a dense sweep of half-angles
+   (2^20 streams through ``sinf`` / ``cosf``), ``gicp.lm_decide`` against
+   ``lm_decide_plain`` on its scenarios (accept, grow, converge on a
+   reject, the 0/0 guard, frozen streams) and on rejected trials whose
+   convergence test steps through its bar an ulp at a time; after phase
+   5, both on every lambda trial that phase's eager run made (its inputs
+   recorded); pass: every output bit-equal on every stream, one launch
+   per call. Each prints device ms, call ms, plain ms, its bound and the
+   launch floor (a one-element add's device time).
 4. Plain DLO (``bench_config(dynamic_detection=False)``) on the first 16
    scans of ``steady_state_sequence(64)`` (rendered afresh, checked
    against the committed checksum) through ``pipeline.init_state`` /
@@ -62,7 +75,10 @@ Phases, in order; any failure exits non-zero and prints no result:
    JAX total; one ``jv_solve`` launch per ``tracker.update`` and no host
    read of the JV solve (``hungarian.HOST_READS``), one
    ``regularize_plane`` launch per ``plane_covariances`` call (the same
-   launch checks in phases 6, 9, 11, 15 and 16).
+   launch checks in phases 6, 9, 11, 15 and 16); on the graph run and on
+   the eager one, one ``lm_propose`` and one ``lm_decide`` launch per
+   lambda trial (the eager run's error re-evaluations) and no eager
+   ``solve6_ldlt``, ``se3_exp`` or plain trial in any trial.
 6. Detection and tracking of one phase-5 scan on the card against the
    port on the host, from the same inputs. Pass: labels, pixel_slot,
    valid slots, tracker integer/bool fields equal; box states and tracker
@@ -123,7 +139,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    single-stream ``gicp.align`` calls iterations and inliers equal,
    translation within 1e-5 m, rotation within 1e-6; the replay's device
    counts exactly one ``nn1_sparse_batched`` launch per batched
-   linearization and no ``nn1_sparse`` launch. Times (CUDA events, after
+   linearization and no ``nn1_sparse`` launch, one ``lm_propose`` and one
+   ``lm_decide`` per lambda trial of the eager call. Times (CUDA events, after
    capture): registrations/s at B = 1 and B = 8, graph and eager in
    turns, each graph's capture seconds and pool bytes, and the batched
    entry's device ms at the final poses against its bound.
@@ -187,8 +204,13 @@ Phases, in order; any failure exits non-zero and prints no result:
    (NaN = NaN; poses, keyframe flags, detections and track states gate
    the phase); every replay after the capture under
    ``torch.cuda.set_sync_debug_mode("error")``; one ``cudaGraphLaunch``
-   per step (profiler) with ``nn1_sparse``, ``jv_solve``,
-   ``regularize_plane`` and ``set_cond`` running inside it;
+   per step (profiler) with ``nn1_sparse`` (3 a scan), ``jv_solve``,
+   ``regularize_plane``, ``set_cond`` and the lambda trial's kernels
+   running inside it, on the device counts and, in a process that has
+   captured no other graph (this check runs right after phase 2), by
+   the profiler's names: once phases 4-12 have run in the process, the
+   profiler names kernels inside conditional bodies wrongly, and the
+   phase prints which names differ from that early check's;
    ``step_chunk`` (K = 8) one graph launch, bit-equal to the graph steps;
    the runner's watchdog on the graph path (a poisoned pose rolls back to
    a state no later replay overwrote: the run equals a replay without
@@ -223,7 +245,8 @@ launches summed over phases 4, 5, 9, 10, 11, 12, 14, 15 and 16;
 ``nn1_sparse_batched``'s from phases 13 and 15; ``knn_classes``' from
 phases 7, 15 and 16, phase 15's summed over both ranks; ``jv_solve``'s and
 ``regularize_plane``'s from phases 5, 6, 9, 11, 15 and 16; ``set_cond``'s
-from phase 17's graph run); the last line
+from phase 17's graph run; ``lm_propose``'s and ``lm_decide``'s from every
+phase that counts with ``main_path_counts`` and phase 13); the last line
 is ``{"ok": true, "device": {...}}`` (full runs only).
 """
 
@@ -283,6 +306,11 @@ KERNELS = {
     # (the JAX package's lax.while_loop / lax.cond, e.g. the LM loop)
     "set_cond": dict(source=f"{PKG}/csrc/graph_cond.cu",
                      replaces="dynamic_direct_lidar_odometry_tpu/ops/gicp.py:470"),
+    # no Pallas kernel: XLA fuses the LM loop body's scalar math
+    "lm_propose": dict(source=f"{PKG}/csrc/lm_trial.cu",
+                       replaces="dynamic_direct_lidar_odometry_tpu/ops/gicp.py:361"),
+    "lm_decide": dict(source=f"{PKG}/csrc/lm_trial.cu",
+                      replaces="dynamic_direct_lidar_odometry_tpu/ops/gicp.py:359"),
 }
 # the bound: FP32 work at the H100 SXM's non-tensor issue rate (67 TFLOP/s
 # counts an FMA as 2; the function rounds every operation, so none fuses:
@@ -302,6 +330,36 @@ FP64_ISSUE_PER_S = 34e12 / 2
 # four): f32 add/sub/mul/fma/div; f64 add/mul/div/sqrt (cosf's range
 # reduction and polynomials, 27; three roots; four quotients)
 PLANE_F32_OPS, PLANE_F64_OPS = 116, 34
+# f32 operations per stream in csrc/lm_trial.cu, counted from the code
+# (a division, root or sign flip as one, the selections not counted):
+# the solve 213 (LDLT 141, substitutions 66, the negated b 6), se3_exp 52
+# and sinf / cosf about 20 each on their fast path; the decision 67 (the
+# denominator 23, rho 2, the convergence test 33, lambda and nu 9)
+LM_PROPOSE_F32_OPS, LM_DECIDE_F32_OPS = 305, 67
+
+
+def lm_propose_bytes(streams: int, zero: bool) -> int:
+    """Bytes ``ddlo_lm_propose`` moves: per stream it reads H's lower
+    triangle (21 floats: the solve touches no other entry), b and lam
+    (and the 1-byte zero flag when there is one), and writes d and
+    delta."""
+    return streams * (4 * (21 + 6 + 1) + int(zero) + 4 * (6 + 16))
+
+
+def lm_decide_bytes(streams: int, accepted: int, ended: int) -> int:
+    """Bytes ``ddlo_lm_decide`` moves: per stream it reads y0, yi, lam,
+    nu, d, b, delta's 3 x 4 top (the convergence test) and the four
+    1-byte flags, and writes lam, nu and the flags; j is read and written
+    once. ``accepted`` streams also read xi and write x; ``ended`` ones
+    (accepted or converged on a reject) read delta's last row and write
+    delta_done."""
+    per = 4 * (4 + 6 + 6 + 12) + 4 + 4 * 2 + 4
+    return streams * per + 8 + accepted * 4 * (16 + 16) + ended * 4 * (4 + 16)
+
+
+# launches of the lambda trial kernels on the main path, by kernel, summed
+# over every block that main_path_counts (and phase 13) counted
+PATH_LAUNCHES = collections.Counter()
 
 
 class SmokeFailure(Exception):
@@ -522,7 +580,8 @@ def stress_inputs(query, s2m_target):
 PTXAS_NAMES = {"nn1_kernelILb0": "nn1_sparse", "nn1_kernelILb1": "nn1_dense",
                "knn_classes_kernelILb0": "knn_classes", "knn_classes_kernelILb1": "knn_classes_sparse",
                "jv_solve_kernel": "jv_solve", "plane_reg_kernel": "regularize_plane",
-               "set_cond_kernel": "set_cond"}
+               "set_cond_kernel": "set_cond", "lm_propose_kernel": "lm_propose",
+               "lm_decide_kernel": "lm_decide"}
 
 
 def ptxas_report(log: str) -> dict:
@@ -553,7 +612,8 @@ KERNEL_NAMES = {"nn1_sparse": "nn1_kernel<false>", "nn1_dense": "nn1_kernel<true
                 "nn1_sparse_batched": "nn1_kernel<false>",
                 "knn_classes": "knn_classes_kernel<false>",
                 "knn_classes_sparse": "knn_classes_kernel<true>",
-                "jv_solve": "jv_solve_kernel", "regularize_plane": "plane_reg_kernel"}
+                "jv_solve": "jv_solve_kernel", "regularize_plane": "plane_reg_kernel",
+                "lm_propose": "lm_propose_kernel", "lm_decide": "lm_decide_kernel"}
 
 
 def _record(kernel, case, Q, T, err, identical, pairs, nbytes, call, plain_ms, cdist_ms, **extra):
@@ -846,6 +906,218 @@ def check_jv(cases, tag, time_case=None):
     return rec
 
 
+def lm_trial_cases(dev):
+    """The lambda trial kernels' synthetic cases from
+    ``tests/torch_lm_cases.py`` on the card: (propose cases, decide
+    cases), each a list of (name, arguments)."""
+    import torch
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import torch_lm_cases as lc
+
+    from dynamic_direct_lidar_odometry_tpu_torch.ops import gicp
+
+    def on(xs):
+        return tuple(None if x is None else x.to(dev) for x in xs)
+
+    propose = [(name, on(lc.as_tensors(*arrays))) for name, *arrays in lc.propose_cases()]
+    propose.append(("half_angle_sweep_2^20", on(lc.half_angle_sweep())))
+    decide = []
+    for name, make in lc.DECIDE_CASES.items():
+        ins, st, _ = make()
+        decide.append((name, (on(ins), gicp.TrialState(*on(st)), lc.S)))
+    return propose, decide
+
+
+@contextlib.contextmanager
+def recorded_trials():
+    """Every lambda trial on the card's path in the block: the inputs of
+    ``gicp.TORCH.lm_propose`` and ``lm_decide`` (cloned before the call:
+    ``lm_decide`` updates its state in place), the trials (error
+    re-evaluations, ``gicp._compute_error``) and the calls of the pieces
+    that no trial on the card may run eagerly (the plain versions, the
+    eager solve and exponential)."""
+    from dynamic_direct_lidar_odometry_tpu_torch.core import se3
+    from dynamic_direct_lidar_odometry_tpu_torch.ops import gicp
+
+    rec = dict(propose=[], decide=[], trials=0, eager_pieces=0)
+
+    def clone(xs):
+        return tuple(None if x is None else x.clone() for x in xs)
+
+    def propose(*a, _real=gicp.TORCH.lm_propose):
+        rec["propose"].append(clone(a))
+        return _real(*a)
+
+    def decide(*a, _real=gicp.TORCH.lm_decide):
+        *ins, st, settings = a
+        rec["decide"].append((clone(ins), gicp.TrialState(*clone(st)), settings))
+        return _real(*a)
+
+    def error(*a, _real=gicp._compute_error, **k):
+        rec["trials"] += 1
+        return _real(*a, **k)
+
+    def piece(real):
+        def f(*a, **k):
+            rec["eager_pieces"] += 1
+            return real(*a, **k)
+        return f
+
+    patches = [(gicp.TORCH, "lm_propose", propose), (gicp.TORCH, "lm_decide", decide),
+               (gicp, "_compute_error", error)]
+    patches += [(m, n, piece(getattr(m, n))) for m, n in (
+        (gicp, "lm_propose_plain"), (gicp, "lm_decide_plain"), (gicp, "solve6_ldlt"),
+        (gicp, "_se3_exp_card"), (se3, "se3_exp"))]
+    saved = [(m, n, getattr(m, n)) for m, n, _ in patches]
+    for m, n, f in patches:
+        setattr(m, n, f)
+    try:
+        yield rec
+    finally:
+        for m, n, f in saved:
+            setattr(m, n, f)
+
+
+_FLOOR = {}
+
+
+def launch_floor_ms() -> float:
+    """The device time of a one-element add (median of 20): what any
+    kernel launch costs on the card, whatever it computes."""
+    import torch
+
+    if "ms" not in _FLOOR:
+        x = torch.zeros(1, device="cuda")
+        _FLOOR["ms"] = device_times(lambda: x.add_(1.0), "elementwise")["kernel_ms"]
+    return _FLOOR["ms"]
+
+
+def _streams_differ(a, b, n: int) -> int:
+    """Streams (of n, the leading rows) whose entries differ in any bit
+    (NaN = NaN)."""
+    import torch
+
+    a, b = a.detach().cpu(), b.detach().cpu()
+    same = a == b
+    if a.is_floating_point():
+        same = (a.view(torch.int32) == b.view(torch.int32)) | (torch.isnan(a) & torch.isnan(b))
+    return int((~same.reshape(n, -1).all(dim=1)).sum())
+
+
+def _lm_timing(kernel, call, plain, streams, ops, nbytes) -> dict:
+    """Device ms, call ms, plain ms, bound and launch floor of one call
+    (``ops`` f32 operations per stream, ``nbytes`` the call's bytes)."""
+    dev = device_times(call, KERNEL_NAMES[kernel])
+    call_ms = cuda_ms(call)
+    timer = "profiler"
+    if dev["ms"] is None:
+        dev["ms"], timer = call_ms, "events"
+    ops_ms = streams * ops / FP32_ISSUE_PER_S * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    bound, by = max((bytes_ms, "bytes"), (ops_ms, "operations"))
+    return dict(timed_streams=streams, timed_bytes=nbytes, timer=timer, call_ms=call_ms, plain_ms=cuda_ms(plain, reps=5),
+                plain_device_ops_per_call=device_busy_ms(plain)[1], bound_ms=bound, bound_by=by,
+                bound_parts_ms=dict(bytes=bytes_ms, f32=ops_ms), launch_floor_ms=launch_floor_ms(),
+                note="bound by latency: the launch floor, not bytes or operations, sets the time", **dev)
+
+
+def check_lm_propose(cases, tag, time_case=None):
+    """``gicp.lm_propose`` (the kernel) against ``lm_propose_plain`` on
+    the card on every case: d and delta bit-equal on every stream, one
+    launch per call. ``time_case``: the index of the case to time."""
+    import torch
+
+    from dynamic_direct_lidar_odometry_tpu_torch.ops import gicp, nn_cuda
+
+    differ, streams, err = [], 0, 0.0
+    before = nn_cuda.LAUNCHES["lm_propose"]
+    for name, args in cases:
+        n = args[2].numel()
+        (d, delta), (pd, pdelta) = gicp.lm_propose(*args), gicp.lm_propose_plain(*args)
+        bad = max(_streams_differ(d, pd, n), _streams_differ(delta, pdelta, n))
+        streams += n
+        if bad:
+            differ.append((name, bad))
+        err = max(err, float(torch.nan_to_num(delta - pdelta).abs().max()),
+                  float(torch.nan_to_num(d - pd).abs().max()))
+    torch.cuda.synchronize()
+    launched = nn_cuda.LAUNCHES["lm_propose"] - before
+    rec = dict(kernel="lm_propose", case=tag, cases=len(cases), streams=streams,
+               cases_not_identical=differ, max_abs_err=err, launches=launched)
+    if time_case is not None:
+        name, args = cases[time_case]
+        rec.update(timed_case=name, linalg_solve_ms=cuda_ms(
+            lambda: torch.linalg.solve(args[0] + args[2][..., None, None] * torch.eye(6, device=args[0].device),
+                                       -args[1]), reps=5),
+            **_lm_timing("lm_propose", lambda: gicp.lm_propose(*args), lambda: gicp.lm_propose_plain(*args),
+                         args[2].numel(), LM_PROPOSE_F32_OPS,
+                         lm_propose_bytes(args[2].numel(), len(args) > 3 and args[3] is not None)))
+    print("kernel check " + json.dumps(rec), flush=True)
+    check(launched == len(cases), f"lm_propose: {launched} launches for {len(cases)} calls")
+    check(not differ, f"lm_propose {tag}: the kernel differs from its plain version on {differ}")
+    return rec
+
+
+def check_lm_decide(cases, tag, time_case=None):
+    """``gicp.lm_decide`` (the kernel) against ``lm_decide_plain`` on the
+    card, each on its own copy of the same state: every field of the
+    updated state bit-equal on every stream, one launch per call."""
+    import torch
+
+    from dynamic_direct_lidar_odometry_tpu_torch.ops import gicp, nn_cuda
+
+    def fresh(st):
+        return gicp.TrialState(*(x.clone() for x in st))
+
+    differ, streams, err = [], 0, 0.0
+    before = nn_cuda.LAUNCHES["lm_decide"]
+    for name, (ins, st, settings) in cases:
+        n = ins[0].numel()
+        got, want = fresh(st), fresh(st)
+        gicp.lm_decide(*ins, got, settings)
+        gicp.lm_decide_plain(*ins, want, settings)
+        bad = {f: k for f, a, b in zip(gicp.TrialState._fields, got, want)
+               if (k := _streams_differ(a, b, n if a.dim() else 1))}
+        streams += n
+        if bad:
+            differ.append((name, bad))
+        err = max(err, max(float(torch.nan_to_num(a.float() - b.float()).abs().max()) for a, b in zip(got, want)))
+    torch.cuda.synchronize()
+    launched = nn_cuda.LAUNCHES["lm_decide"] - before
+    rec = dict(kernel="lm_decide", case=tag, cases=len(cases), streams=streams,
+               cases_not_identical=differ, max_abs_err=err, launches=launched)
+    if time_case is not None:
+        name, (ins, st, settings) = cases[time_case]
+        a, b = fresh(st), fresh(st)
+        # every timed call repeats the trial on the state its warm-up call
+        # left: count the bytes of that call's decisions
+        after = fresh(st)
+        gicp.lm_decide_plain(*ins, after, settings)
+        acc, crj = gicp.lm_decide_plain(*ins, fresh(after), settings)
+        n_acc, n_end = int(acc.sum()), int((acc | crj).sum())
+        rec.update(timed_case=name, timed_accepted=n_acc, timed_ended=n_end, **_lm_timing(
+            "lm_decide", lambda: gicp.lm_decide(*ins, a, settings),
+            lambda: gicp.lm_decide_plain(*ins, b, settings), ins[0].numel(), LM_DECIDE_F32_OPS,
+            lm_decide_bytes(ins[0].numel(), n_acc, n_end)))
+    print("kernel check " + json.dumps(rec), flush=True)
+    check(launched == len(cases), f"lm_decide: {launched} launches for {len(cases)} calls")
+    check(not differ, f"lm_decide {tag}: the kernel differs from its plain version on {differ}")
+    return rec
+
+
+def check_trial_launches(tag, launches, rec):
+    """One ``lm_propose`` and one ``lm_decide`` launch per lambda trial
+    (``recorded_trials``' error re-evaluations) and no eager piece."""
+    got = dict(lm_propose=launches.get("lm_propose", 0), lm_decide=launches.get("lm_decide", 0),
+               trials=rec["trials"], eager_pieces=rec["eager_pieces"])
+    print(f"{tag} lm trials " + json.dumps(got), flush=True)
+    check(rec["trials"] > 0 and got["lm_propose"] == got["lm_decide"] == rec["trials"],
+          f"{tag}: lm_propose / lm_decide launched {got}")
+    check(rec["eager_pieces"] == 0, f"{tag}: {rec['eager_pieces']} eager trial pieces ran on the card")
+    return got
+
+
 def check_card_kernels(tag, launches, tracker_updates, covariance_calls, host_reads):
     """The launch checks of a phase on the main path: one ``jv_solve`` per
     ``tracker.update`` and no host read of the JV solve, one
@@ -885,6 +1157,7 @@ def main_path_counts(tag=None):
         yield out
     out.update({k: 0 for k in KERNELS}, tracker_updates=0, covariance_calls=0, ccl_sweeps=0)
     out.update(counts)
+    PATH_LAUNCHES.update({k: out[k] for k in ("lm_propose", "lm_decide")})
     if tag is not None:
         check_card_kernels(tag, out, out["tracker_updates"], out["covariance_calls"],
                            sum(hungarian.HOST_READS.values()))
@@ -1516,7 +1789,71 @@ def _bits_differ(a, b) -> list:
     return out
 
 
-def graph_phase(cfg, seq, card):
+def profile_steps(cfg, step, st, pts, msk, ts, k0=1, k=8) -> tuple:
+    """Scans k0 + 1 .. k0 + k through ``step`` from the state ``st`` under
+    ``torch.profiler``: (per-scan busy ms, device operations, host launch
+    calls and the hand-written kernels by the profiler's names; device
+    operations per scan by name)."""
+    import torch
+
+    from dynamic_direct_lidar_odometry_tpu_torch.utils import profiling
+
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for i in range(k0 + 1, k0 + 1 + k):
+            st, _ = step(cfg, st, pts[i], msk[i], ts[i])
+        torch.cuda.synchronize()
+    busy, ops = profiling.device_busy_us(prof)
+    events = profiling.device_events(prof)
+    names = collections.Counter(e.name for e in events)
+    api = collections.Counter(e.name for e in prof.events()
+                              if e.name in ("cudaLaunchKernel", "cudaGraphLaunch", "cuLaunchKernel",
+                                            "cudaLaunchKernelExC", "cuLaunchKernelEx"))
+    set_us = [e.time_range.end - e.time_range.start for e in events if "set_cond_kernel" in e.name]
+
+    def per_scan(pat):
+        return sum(v for nm, v in names.items() if pat in nm) / k
+
+    return dict(
+        device_busy_ms_per_scan=busy / 1e3 / k,
+        device_ops_per_scan=ops / k, host_launch_calls_per_scan={a: v / k for a, v in api.items()},
+        nn1_sparse_per_scan=per_scan("nn1_kernel<false>"), jv_solve_per_scan=per_scan("jv_solve_kernel"),
+        plane_reg_per_scan=per_scan("plane_reg_kernel"), set_cond_per_scan=len(set_us) / k,
+        set_cond_us_mean=statistics.mean(set_us) if set_us else None,
+    ), {nm: v / k for nm, v in names.items()}
+
+
+def graph_names_phase(cfg, seq) -> dict:
+    """Phase 17's profiler check, in a process that has captured no other
+    graph: one ``cudaGraphLaunch`` per ``pipeline.step`` and, by the
+    profiler's names, ``nn1_sparse``, ``jv_solve``, ``regularize_plane``
+    and ``set_cond`` inside the replays of scans 2-9. Returns the device
+    operations per scan by name, which the later graph phase compares
+    with its own."""
+    import torch
+
+    from dynamic_direct_lidar_odometry_tpu_torch import pipeline
+
+    dev = torch.device("cuda", 0)
+    pts = [torch.as_tensor(seq.points[i], device=dev) for i in range(10)]
+    msk = [torch.as_tensor(seq.mask[i], device=dev) for i in range(10)]
+    ts = [torch.full((), float(seq.stamps[i]), dtype=torch.float32, device=dev) for i in range(10)]
+    pipeline.clear_graphs()
+    st = pipeline.init_state(cfg, seq.points[0], seq.mask[0], float(seq.stamps[0]), device=dev)
+    st, _ = pipeline.step(cfg, st, pts[1], msk[1], ts[1])  # captures
+    prof, names = profile_steps(cfg, pipeline.step, st, pts, msk, ts)
+    pipeline.clear_graphs()  # later phases capture their own
+    print("graph names " + json.dumps(dict(profile=prof, device_ops_per_scan_by_name=names)), flush=True)
+    check(prof["nn1_sparse_per_scan"] >= 3 and prof["jv_solve_per_scan"] >= 1
+          and prof["plane_reg_per_scan"] >= 1 and prof["set_cond_per_scan"] >= 1,
+          f"the kernels did not run inside the replays: {prof}")
+    check(prof["host_launch_calls_per_scan"].get("cudaGraphLaunch", 0) == 1,
+          f"a graph step is not one graph launch: {prof['host_launch_calls_per_scan']}")
+    return names
+
+
+def graph_phase(cfg, seq, card, fresh_names=None):
     """Phase 17: ``pipeline.step`` as a captured graph against
     ``pipeline.step_eager`` over bench scans 1-16."""
     import torch
@@ -1573,35 +1910,14 @@ def graph_phase(cfg, seq, card):
         walls[kind] += run(pipeline.step if kind == "graph" else pipeline.step_eager)[2][1:]
     wall = {k: statistics.median(v) for k, v in walls.items()}
 
-    def profile(step, k0=1, k=8):
-        st = e_states[k0 - 1]
-        torch.cuda.synchronize()
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
-            for i in range(k0 + 1, k0 + 1 + k):
-                st, _ = step(cfg, st, pts[i], msk[i], ts[i])
-            torch.cuda.synchronize()
-        busy, ops = profiling.device_busy_us(prof)
-        names = collections.Counter(e.name for e in prof.events()
-                                    if e.device_type == torch.autograd.DeviceType.CUDA)
-        api = collections.Counter(e.name for e in prof.events()
-                                  if e.name in ("cudaLaunchKernel", "cudaGraphLaunch", "cuLaunchKernel",
-                                                "cudaLaunchKernelExC", "cuLaunchKernelEx"))
-        set_us = [e.time_range.end - e.time_range.start for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA and "set_cond_kernel" in e.name]
-
-        def per_scan(pat):
-            return sum(v for nm, v in names.items() if pat in nm) / k
-
-        return dict(
-            device_busy_ms_per_scan=busy / 1e3 / k,
-            device_ops_per_scan=ops / k, host_launch_calls_per_scan={a: v / k for a, v in api.items()},
-            nn1_sparse_per_scan=per_scan("nn1_kernel<false>"), jv_solve_per_scan=per_scan("jv_solve_kernel"),
-            plane_reg_per_scan=per_scan("plane_reg_kernel"), set_cond_per_scan=len(set_us) / k,
-            set_cond_us_mean=statistics.mean(set_us) if set_us else None,
-        )
-
-    prof_graph, prof_eager = profile(pipeline.step), profile(pipeline.step_eager)
+    (prof_graph, names), (prof_eager, _) = (profile_steps(cfg, step, e_states[0], pts, msk, ts)
+                                            for step in (pipeline.step, pipeline.step_eager))
+    if fresh_names is not None:
+        # the profiler's names here, after the other phases' graphs, against
+        # those of the same replays before any other capture (graph_names_phase)
+        prof_graph["names_differ_from_first_capture"] = {
+            nm: [fresh_names.get(nm, 0.0), names.get(nm, 0.0)] for nm in sorted(set(names) | set(fresh_names))
+            if fresh_names.get(nm, 0.0) != names.get(nm, 0.0)}
     for kind, pr in (("graph", prof_graph), ("eager", prof_eager)):
         pr["device_idle_share"] = 1.0 - pr["device_busy_ms_per_scan"] / wall[kind]
 
@@ -1670,9 +1986,11 @@ def graph_phase(cfg, seq, card):
     )
     print("graph " + json.dumps(rec), flush=True)
     check(not gated, f"graph step differs from step_eager in {gated}")
-    check(prof_graph["nn1_sparse_per_scan"] >= 3 and prof_graph["jv_solve_per_scan"] >= 1
-          and prof_graph["plane_reg_per_scan"] >= 1 and prof_graph["set_cond_per_scan"] >= 1,
-          f"the kernels did not run inside the replays: {prof_graph}")
+    # the kernels inside the replays, on the device counts (the profiler's
+    # names are checked before any other capture: graph_names_phase)
+    check(counted["nn1_sparse"] >= 3 * n and counted["jv_solve"] >= n and counted["regularize_plane"] >= n
+          and counted["set_cond"] >= n and counted["lm_propose"] == counted["lm_decide"] >= n,
+          f"the kernels did not run inside the replays: {counted}")
     check(prof_graph["host_launch_calls_per_scan"].get("cudaGraphLaunch", 0) == 1,
           f"a graph step is not one graph launch: {prof_graph['host_launch_calls_per_scan']}")
     check(not chunk_differ, f"step_chunk differs from the graph steps in {chunk_differ}")
@@ -1741,13 +2059,15 @@ def batched_align_phase(problems, card):
     calls = [(tuple(x[b] for x in batch), settings) for b in range(ALIGN_B)]
     sharding.clear_graphs()
     aligner = sharding.batched_align(sharding.make_mesh(), settings)
-    eager = gicp.align_batch(*batch, settings)
+    with recorded_trials() as trials:
+        eager = gicp.align_batch(*batch, settings)
     aligner(*batch)  # the warm-up and the capture
     torch.cuda.synchronize()
     with profiling.device_counts("cuda") as got:
         with sync_free():
             res = aligner(*batch)
     got = dict(got)
+    PATH_LAUNCHES.update({k: got.get(k, 0) for k in ("lm_propose", "lm_decide")})
     differ = _bits_differ(res, eager)
     iters = res.iterations.tolist()
     lin = max(iters) + (1 if settings.compute_residuals else 0)
@@ -1794,6 +2114,7 @@ def batched_align_phase(problems, card):
           f"batched_align differs from single aligns by {t_err} m, {r_err} rad")
     check(got.get("nn1_sparse_batched", 0) == lin and got.get("nn1_sparse", 0) == 0,
           f"a batched_align replay launched {got} for {lin} batched linearizations")
+    check_trial_launches("batched_align", got, trials)
     return got.get("nn1_sparse_batched", 0)
 
 
@@ -2197,10 +2518,10 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 1
     import dynamic_direct_lidar_odometry_tpu_torch  # noqa: F401  (sets the TF32 flags)
-    from dynamic_direct_lidar_odometry_tpu_torch import config
+    from dynamic_direct_lidar_odometry_tpu_torch import config, pipeline
     from dynamic_direct_lidar_odometry_tpu_torch.odometry import preprocess
     from dynamic_direct_lidar_odometry_tpu_torch.ops import hungarian, nn_cuda, segmentation
-    from dynamic_direct_lidar_odometry_tpu_torch.utils import sequence
+    from dynamic_direct_lidar_odometry_tpu_torch.utils import profiling, sequence
 
     card = card_line()
     print(f"card: {card}", flush=True)
@@ -2247,6 +2568,15 @@ def main(argv=None) -> int:
         m = int(ref_cli["n_scans"])
         check(sequence.sequence_sha256(seq, m) == str(ref_cli["scans_sha256"]),
               f"scans 0-{m - 1} differ from the CLI reference sequence")
+
+    launches, fresh_names = {}, None
+    if 17 in phases:
+        # ---- 17, its profiler half: in a process that has captured no
+        # other graph (after phases 4-12 the profiler names kernels inside
+        # conditional bodies wrongly, PERF.md §7; the rest of phase 17
+        # runs last and prints how its names differ from these) ----
+        print(f"at {time.perf_counter() - t_start:.1f} s: phase 17 (profiler names)", flush=True)
+        fresh_names = graph_names_phase(cfg, seq)
 
     # ---- 3. kernels vs their plain versions ----
     print(f"at {time.perf_counter() - t_start:.1f} s: phase 3", flush=True)
@@ -2301,8 +2631,11 @@ def main(argv=None) -> int:
         records["regularize_plane"] = [check_regularize(query, k)]
         records["jv_solve"] = [check_jv(jv_cases(dev), "random_ties_big_nan_N32_64_128")]
         records["set_cond"] = [check_set_cond(dev)]
+        lm_propose_cases, lm_decide_cases = lm_trial_cases(dev)
+        records["lm_propose"] = [check_lm_propose(lm_propose_cases, "synthetic_and_half_angle_sweep", 0)]
+        records["lm_decide"] = [check_lm_decide(lm_decide_cases, "scenarios_and_convergence_boundary", 0)]
+        del lm_propose_cases, lm_decide_cases
 
-    launches = {}
     sparse_launches = {}  # nn1_sparse per phase that runs it, each read right after it
     card_launches = {}  # jv_solve and regularize_plane per phase, each read right after it
     if 4 in phases:
@@ -2332,7 +2665,8 @@ def main(argv=None) -> int:
         # the S2M registrations (phase 13) and the tracker's cost matrices
         # (phase 3) are recorded from an eager run of the same scans: a
         # graph replay calls no Python
-        with s2m_calls(ALIGN_B) as s2m, recorded_calls(hungarian, "solve") as solves:
+        with s2m_calls(ALIGN_B) as s2m, recorded_calls(hungarian, "solve") as solves, \
+                recorded_trials() as trials, profiling.device_counts("cuda") as eager_counts:
             eager_poses, _ = run_slice(cfg, seq.points[:n], seq.mask[:n], seq.stamps[:n], dev, eager=True)
         linz = sum(r["s2s_iterations"] + r["s2m_iterations"] + 1 for r in steps)
         inputs = steps[keep - 1].pop("inputs")
@@ -2349,6 +2683,8 @@ def main(argv=None) -> int:
             eager_poses_equal=bool(np.array_equal(eager_poses, poses)),
         )
         print("ddlo " + json.dumps(summary), flush=True)
+        check_trial_launches("ddlo graph", card_launches[5], trials)
+        check_trial_launches("ddlo eager", eager_counts, trials)
         check(summary["keyframe_flags_match_jax"], "DDLO keyframe flags differ from JAX")
         check(sparse_launches[5] >= linz > 0, f"nn1_sparse launched {sparse_launches[5]} for {linz}")
         check(div <= DIVERGENCE_BAR_M, f"DDLO poses diverge {div * 1e3:.3f} mm from JAX")
@@ -2367,6 +2703,12 @@ def main(argv=None) -> int:
             rec = check_jv(cases, "bench_tracker_16_scans", time_case=int(np.argmax(steps_of)))
             rec.update(path_steps_per_solve=steps_of)
             records["jv_solve"].insert(0, rec)
+            # phase 3's lambda trial checks on every trial of the eager run,
+            # timed on its first (an S2S trial, one stream)
+            records["lm_propose"].insert(0, check_lm_propose(
+                [(f"trial_{i}", a) for i, a in enumerate(trials["propose"])], "bench_trials_16_scans", 0))
+            records["lm_decide"].insert(0, check_lm_decide(
+                [(f"trial_{i}", a) for i, a in enumerate(trials["decide"])], "bench_trials_16_scans", 0))
 
     if 6 in phases:
         # ---- 6. detection + tracking, card vs host ----
@@ -2457,8 +2799,9 @@ def main(argv=None) -> int:
     if 17 in phases:
         # ---- 17. the step and the chunk as captured graphs ----
         print(f"at {time.perf_counter() - t_start:.1f} s: phase 17", flush=True)
-        launches["set_cond"] = graph_phase(cfg, seq, card)["launches"]["set_cond"]
+        launches["set_cond"] = graph_phase(cfg, seq, card, fresh_names)["launches"]["set_cond"]
     launches["nn1_sparse"] = sum(sparse_launches.values())
+    launches.update({k: PATH_LAUNCHES[k] for k in ("lm_propose", "lm_decide")})
     for k in ("jv_solve", "regularize_plane"):
         launches[k] = sum(v.get(k, 0) for v in card_launches.values())
     print(f"nn1_sparse launches by phase: {json.dumps(sparse_launches)}", flush=True)

@@ -10,9 +10,11 @@ decides on the device; outside one the loop reads only its predicate.
 All scalar LM state stays in f32 on the device, so the accept/reject
 decisions are the JAX package's arithmetic; :func:`align_batch` runs its
 loops the same way, over "any stream still running". The rounding-sensitive steps
-(point transform, sums, inverse, solve, exp, compose) come from
-:func:`arithmetic`: on the host ``ops/gicp_xla.py`` (XLA's CPU order, the
-jitted JAX package's bits), on the card :data:`TORCH`.
+(point transform, sums, inverse, compose, and a lambda trial's solve,
+exponential and update) come from :func:`arithmetic`: on the host
+``ops/gicp_xla.py`` (XLA's CPU order, the jitted JAX package's bits), on
+the card :data:`TORCH`, whose trial is two kernels of
+``csrc/lm_trial.cu`` (:func:`lm_propose`, :func:`lm_decide`).
 
 Correspondence backend (``GICPSettings.nn_impl``): "sparse" launches the
 CUDA kernel on CUDA tensors (``ops/nn_cuda.py``) with the target-side
@@ -192,12 +194,157 @@ def _error(src_t, vf, M, B):
     return torch.sum(e * Me)
 
 
+class TrialState(NamedTuple):
+    """The carry of the lambda loop, updated in place by each trial (per
+    stream over a leading batch axis; ``j`` is one count for all)."""
+
+    lam: torch.Tensor  # f32 damping
+    nu: torch.Tensor  # f32 growth factor of a rejected step
+    x: torch.Tensor  # (..., 4, 4) pose, the last accepted step's
+    delta_done: torch.Tensor  # (..., 4, 4) the step that ended the loop
+    done: torch.Tensor  # bool: accepted or converged on a reject
+    accepted: torch.Tensor  # bool
+    conv: torch.Tensor  # bool: converged on a rejected step
+    act: torch.Tensor  # bool: the stream still runs trials
+    j: torch.Tensor  # () int32 trials run
+
+
+def _sel(m: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``torch.where`` of a per-stream mask over the trailing dims of a / b."""
+    return torch.where(m.reshape(m.shape + (1,) * (a.dim() - m.dim())), a, b)
+
+
+def _se3_exp_card(d: torch.Tensor) -> torch.Tensor:
+    """``se3.se3_exp`` with the angle's square summed left to right (the
+    kernel's order; ``torch.sum`` on the card picks its own)."""
+    om = d[..., :3]
+    ts = (om[..., 0] * om[..., 0] + om[..., 1] * om[..., 1]) + om[..., 2] * om[..., 2]
+    theta = torch.sqrt(torch.clamp_min(ts, se3._EPS))
+    half = 0.5 * theta
+    small = ts < 1e-10
+    imag = torch.where(small, 0.5 - (1.0 / 48.0) * ts, torch.sin(half) / theta)
+    real = torch.where(small, 1.0 - (1.0 / 8.0) * ts, torch.cos(half))
+    q = torch.cat([real[..., None], imag[..., None] * om], dim=-1)
+    return se3.from_rt(se3.quat_to_matrix(q), d[..., 3:])
+
+
+def lm_propose_plain(H, b, lam, zero=None, sub=_sub, exp=None):
+    """The plain version of ``csrc/lm_trial.cu``'s ``ddlo_lm_propose``:
+    ``d = solve6_ldlt(H + lam I, -b)``, zero where ``zero`` (a degenerate
+    stream of the GN step), and ``delta = se3_exp(d)``. ``H`` (..., 6, 6),
+    ``b`` (..., 6), ``lam`` and ``zero`` (...); returns (d, delta).
+    ``sub`` / ``exp``: the solve's ``v - p q`` and the exponential
+    (default: the card's, :func:`_se3_exp_card`; ``gicp_xla`` passes
+    its own)."""
+    eye6 = torch.eye(6, dtype=H.dtype, device=H.device)
+    d = solve6_ldlt(H + lam[..., None, None] * eye6, -b, sub)
+    if zero is not None:
+        d = torch.where(zero[..., None], 0.0, d)
+    return d, (_se3_exp_card if exp is None else exp)(d)
+
+
+def _dot_ltr(d: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """``d . g`` over the last axis of six, summed left to right (the
+    kernel's order; ``torch.dot`` on the card picks its own)."""
+    p = d * g
+    dot = p[..., 0]
+    for k in range(1, 6):
+        dot = dot + p[..., k]
+    return dot
+
+
+def lm_decide_plain(y0, yi, d, b, delta, xi, st: TrialState, s, dot=_dot_ltr):
+    """The plain version of ``ddlo_lm_decide``: the rest of a trial once
+    the error ``yi`` at ``xi = delta x`` is known (the JAX package's
+    lm_inner body), ``st`` updated in place (``s``: the
+    :class:`GICPSettings`): accept (rho >= 0), converge on a rejected
+    step, or grow lambda; every stream whose ``act`` is false is kept.
+    ``dot(d, lam d - b)``: the rho denominator (``gicp_xla`` passes its
+    own). Returns the accept and converge-on-reject masks (the kernel's
+    wrapper returns nothing)."""
+    rho = (y0 - yi) / torch.clamp_min(dot(d, st.lam[..., None] * d - b), 1e-30)
+    reject = rho < 0
+    acc = st.act & ~reject
+    crj = st.act & reject & _is_converged(delta, _conv_eps(s, delta.device))
+    grow = st.act & reject & ~crj
+    t = 2.0 * rho - 1.0
+    st.lam.copy_(torch.where(acc, st.lam * torch.clamp_min(1.0 - t * t * t, 1.0 / 3.0),
+                             torch.where(grow, st.nu * st.lam, st.lam)))
+    st.nu.copy_(torch.where(grow, 2.0 * st.nu, st.nu))
+    st.x.copy_(_sel(acc, xi, st.x))
+    st.delta_done.copy_(_sel(acc | crj, delta, st.delta_done))
+    st.done.logical_or_(acc | crj)
+    st.accepted.logical_or_(acc)
+    st.conv.logical_or_(crj)
+    st.act.logical_and_(~(acc | crj))
+    st.j.add_(1)
+    return acc, crj
+
+
+def _check_card(name, tensors, shapes, dtypes):
+    dev = tensors[0].device
+    for t, shape, dt in zip(tensors, shapes, dtypes):
+        if t is None:
+            continue
+        if (not t.is_cuda or t.device != dev or t.dtype != dt or tuple(t.shape) != shape
+                or not t.is_contiguous()):
+            raise ValueError(
+                f"{name}: expected contiguous {dt} {shape} on {dev}, got {t.dtype} "
+                f"{tuple(t.shape)} on {t.device} (contiguous={t.is_contiguous()})"
+            )
+
+
+def lm_propose(H, b, lam, zero=None):
+    """:func:`lm_propose_plain` on the card's terms: a CUDA ``H`` launches
+    ``csrc/lm_trial.cu``'s ``ddlo_lm_propose`` (one thread per stream,
+    counted as ``lm_propose``) or raises; a CPU ``H`` runs the plain
+    version; any other device raises. Both give the same bits."""
+    if not H.is_cuda:
+        if H.device.type != "cpu":
+            raise ValueError(f"lm_propose: no kernel for a tensor on {H.device}")
+        return lm_propose_plain(H, b, lam, zero)
+    lead = tuple(lam.shape)
+    H, b = H.contiguous(), b.contiguous()
+    _check_card("lm_propose", [H, b, lam, zero], [lead + (6, 6), lead + (6,), lead, lead],
+                [torch.float32] * 3 + [torch.bool])
+    d = torch.empty(lead + (6,), dtype=torch.float32, device=H.device)
+    delta = torch.empty(lead + (4, 4), dtype=torch.float32, device=H.device)
+    lib = nn_cuda.build()["lm_trial"].lib
+    nn_cuda.run_kernel(lib.ddlo_lm_propose, "lm_propose", H, b, lam, zero, lam.numel(), d, delta)
+    return d, delta
+
+
+def lm_decide(y0, yi, d, b, delta, xi, st: TrialState, s) -> None:
+    """:func:`lm_decide_plain` on the card's terms: a CUDA ``y0`` launches
+    ``ddlo_lm_decide`` (one thread per stream, ``st`` updated in place,
+    counted as ``lm_decide``) or raises; a CPU ``y0`` runs the plain
+    version; any other device raises. Both give the same bits."""
+    if not y0.is_cuda:
+        if y0.device.type != "cpu":
+            raise ValueError(f"lm_decide: no kernel for a tensor on {y0.device}")
+        lm_decide_plain(y0, yi, d, b, delta, xi, st, s)
+        return
+    lead = tuple(y0.shape)
+    b = b.contiguous()
+    f32, flag = torch.float32, torch.bool
+    _check_card("lm_decide", [y0, yi, d, b, delta, xi, *st],
+                [lead, lead, lead + (6,), lead + (6,)] + [lead + (4, 4)] * 2 + [lead] * 2
+                + [lead + (4, 4)] * 2 + [lead] * 4 + [()],
+                [f32] * 10 + [flag] * 4 + [torch.int32])
+    lib = nn_cuda.build()["lm_trial"].lib
+    nn_cuda.run_kernel(lib.ddlo_lm_decide, "lm_decide", y0, yi, d, b, delta, xi, *st, y0.numel(),
+                       s.rotation_epsilon, s.transformation_epsilon)  # ctypes rounds them to f32
+
+
 # The card's arithmetic (eager PyTorch; it runs on any device). The LM
 # loops take every rounding-sensitive step from one such namespace;
-# ``gicp_xla`` has the same names.
+# ``gicp_xla`` has the same names. A lambda trial is ``lm_propose``, the
+# compose, the error and ``lm_decide``: on the card two kernels and ~12
+# operations.
 TORCH = types.SimpleNamespace(
-    transform_points=_transform_points, compose=se3.compose, se3_exp=se3.se3_exp,
-    sub=_sub, linearize_terms=_linearize_terms, error=_error,
+    transform_points=_transform_points, compose=se3.compose,
+    linearize_terms=_linearize_terms, error=_error,
+    lm_propose=lm_propose, lm_decide=lm_decide,
 )
 
 
@@ -291,12 +438,21 @@ def _compute_error(T, src_pts, aux, ar):
     return ar.error(ar.transform_points(T, src_pts), valid.to(src_pts.dtype), M, B)
 
 
-def _is_converged(delta: torch.Tensor, s: GICPSettings) -> torch.Tensor:
+def _conv_eps(s: GICPSettings, dev) -> tuple:
+    """The convergence test's epsilons as f32 tensors on ``dev``: a
+    division by a tensor is an f32 division on every device (by a Python
+    scalar, PyTorch's CUDA division rounds otherwise; the LM kernel
+    divides)."""
+    return tuple(torch.full((), e, dtype=torch.float32, device=dev)
+                 for e in (s.rotation_epsilon, s.transformation_epsilon))
+
+
+def _is_converged(delta: torch.Tensor, eps: tuple) -> torch.Tensor:
     """Reference convergence test (lsq_registration_impl.hpp:129-139), per
-    pose of (..., 4, 4)."""
+    pose of (..., 4, 4); ``eps``: :func:`_conv_eps`."""
     eye = torch.eye(3, dtype=delta.dtype, device=delta.device)
-    Rd = torch.abs(delta[..., :3, :3] - eye) / s.rotation_epsilon
-    td = torch.abs(delta[..., :3, 3]) / s.transformation_epsilon
+    Rd = torch.abs(delta[..., :3, :3] - eye) / eps[0]
+    td = torch.abs(delta[..., :3, 3]) / eps[1]
     return torch.maximum(torch.amax(Rd, dim=(-2, -1)), torch.amax(td, dim=-1)) < 1.0
 
 
@@ -345,48 +501,32 @@ def align(
         return (*allsum(y0, H, b), aux)
 
     eye6 = torch.eye(6, dtype=f32, device=dev)
+    lam_gn = torch.full((), 1e-12, dtype=f32, device=dev)
+    eps = _conv_eps(s, dev)
 
     def lm_inner(x, lam, y0, H, b, aux, skip):
         """One step_lm in place: loop over lambda until a step is accepted
         (rho >= 0), convergence is detected on a rejected step, or
         lm_max_iterations is exhausted (``skip``: not at all). ``x`` and
-        ``lam`` are updated; returns (done, accepted, conv_on_reject,
-        delta)."""
-        j = torch.zeros((), dtype=torch.int32, device=dev)
-        nu = torch.full((), 2.0, dtype=f32, device=dev)
-        done, accepted, conv = (torch.zeros((), dtype=torch.bool, device=dev) for _ in range(3))
-        delta_done = torch.eye(4, dtype=f32, device=dev)
+        ``lam`` are updated; returns the :class:`TrialState`."""
+        st = TrialState(
+            lam, torch.full((), 2.0, dtype=f32, device=dev), x, torch.eye(4, dtype=f32, device=dev),
+            *(torch.zeros((), dtype=torch.bool, device=dev) for _ in range(3)),
+            torch.ones((), dtype=torch.bool, device=dev), torch.zeros((), dtype=torch.int32, device=dev),
+        )
 
         def more(*_):
-            return (j < s.lm_max_iterations) & ~done & ~skip
+            return (st.j < s.lm_max_iterations) & ~st.done & ~skip
 
         def trial(*_):
-            d = solve6_ldlt(H + lam * eye6, -b, ar.sub)
-            delta = ar.se3_exp(d)
+            # a trial runs only while the stream is active: act stays true
+            d, delta = ar.lm_propose(H, b, lam)
             xi = ar.compose(delta, x)
             (yi,) = allsum(_compute_error(xi, src_pts, aux, ar))
-            # d^T (H + lam I) d >= 0; guard exact convergence d = 0 (0/0)
-            denom = torch.clamp_min(torch.dot(d, lam * d - b), 1e-30)
-            rho = (y0 - yi) / denom
-            reject = rho < 0
-            acc = ~reject
-            crj = reject & _is_converged(delta, s)
-            t = 2.0 * rho - 1.0
-            lam_new = torch.where(
-                acc, lam * torch.clamp_min(1.0 - t * t * t, 1.0 / 3.0),
-                torch.where(crj, lam, nu * lam),
-            )
-            nu.copy_(torch.where(reject & ~crj, 2.0 * nu, nu))
-            lam.copy_(lam_new)
-            x.copy_(torch.where(acc, xi, x))
-            delta_done.copy_(torch.where(acc | crj, delta, delta_done))
-            accepted.logical_or_(acc)
-            conv.logical_or_(crj)
-            done.logical_or_(acc | crj)
-            j.add_(1)
+            ar.lm_decide(y0, yi, d, b, delta, xi, st, s)
 
         control.while_loop(more, trial, ())
-        return done, accepted, conv, delta_done
+        return st
 
     # the LM state, updated in place by the iterations (lax.while_loop's
     # carry: the pose, lambda, the flags, the count, the last error and
@@ -411,18 +551,16 @@ def align(
         # gate): stop with the pose unchanged
         degenerate = hmax < 1e-12
         if s.optimizer == "gn":
-            d = solve6_ldlt(H + 1e-12 * eye6, -b, ar.sub)
-            d = torch.where(degenerate, 0.0, d)
-            delta = ar.se3_exp(d)
+            _, delta = ar.lm_propose(H, b, lam_gn, degenerate)
             x_new = ar.compose(delta, x0)
-            conv_new = degenerate | _is_converged(delta, s)
+            conv_new = degenerate | _is_converged(delta, eps)
             H_st.copy_(H)
         else:
             x_new = x0.clone()
-            done, accepted, conv_rej, delta = lm_inner(x_new, lam, y0, H, b, aux, degenerate)
-            conv_new = degenerate | conv_rej | (accepted & _is_converged(delta, s))
-            failed.copy_(~done & ~degenerate)  # lm_max_iterations exhausted
-            H_st.copy_(torch.where(accepted & ~degenerate, H, H_st))
+            st = lm_inner(x_new, lam, y0, H, b, aux, degenerate)
+            conv_new = degenerate | st.conv | (st.accepted & _is_converged(st.delta_done, eps))
+            failed.copy_(~st.done & ~degenerate)  # lm_max_iterations exhausted
+            H_st.copy_(torch.where(st.accepted & ~degenerate, H, H_st))
         converged.copy_(conv_new)
         y_st.copy_(y0)
         lm_lambda.copy_(lam)
@@ -517,11 +655,10 @@ def align_batch(
         )
         return (*allsum(y0, H, b), aux)
 
-    def sel(m, a, b):
-        return torch.where(m.reshape(m.shape + (1,) * (a.dim() - m.dim())), a, b)
-
     eye6 = torch.eye(6, dtype=f32, device=dev)
     eye4 = torch.eye(4, dtype=f32, device=dev).expand(Bn, 4, 4)
+    lam_gn = torch.full((Bn,), 1e-12, dtype=f32, device=dev)
+    eps = _conv_eps(s, dev)
 
     def flags(n=1):
         return (torch.zeros(Bn, dtype=torch.bool, device=dev) for _ in range(n))
@@ -529,42 +666,21 @@ def align_batch(
     def lm_inner(run, x0, lam, y0, H, b, aux):
         """step_lm for the streams in ``run``, frozen per stream as in
         :func:`align`'s inner loop; ``lam`` is updated in place. Returns
-        (x, done, accepted, conv_on_reject, delta)."""
-        nu = torch.full((Bn,), 2.0, dtype=f32, device=dev)
-        x, delta_done = x0.clone(), eye4.clone()
-        done, accepted, conv = flags(3)
-        act = run.clone()
-        j = torch.zeros((), dtype=torch.int32, device=dev)
+        the :class:`TrialState`."""
+        st = TrialState(lam, torch.full((Bn,), 2.0, dtype=f32, device=dev), x0.clone(), eye4.clone(),
+                        *flags(3), run.clone(), torch.zeros((), dtype=torch.int32, device=dev))
 
         def more(*_):
-            return (j < s.lm_max_iterations) & act.any()
+            return (st.j < s.lm_max_iterations) & st.act.any()
 
         def trial(*_):
-            d = solve6_ldlt(H + lam[:, None, None] * eye6, -b, ar.sub)
-            delta = ar.se3_exp(d)
-            xi = ar.compose(delta, x)
+            d, delta = ar.lm_propose(H, b, lam)
+            xi = ar.compose(delta, st.x)
             (yi,) = allsum(_compute_error(xi, src_pts, aux, ar))
-            g = lam[:, None] * d - b
-            denom = torch.clamp_min(torch.stack([torch.dot(u, v) for u, v in zip(d, g)]), 1e-30)
-            rho = (y0 - yi) / denom
-            reject = rho < 0
-            acc = act & ~reject
-            crj = act & reject & _is_converged(delta, s)
-            grow = act & reject & ~crj
-            t = 2.0 * rho - 1.0
-            lam.copy_(torch.where(acc, lam * torch.clamp_min(1.0 - t * t * t, 1.0 / 3.0),
-                                  torch.where(grow, nu * lam, lam)))
-            nu.copy_(torch.where(grow, 2.0 * nu, nu))
-            x.copy_(sel(acc, xi, x))
-            delta_done.copy_(sel(acc | crj, delta, delta_done))
-            done.logical_or_(acc | crj)
-            accepted.logical_or_(acc)
-            conv.logical_or_(crj)
-            act.logical_and_(~(acc | crj))
-            j.add_(1)
+            ar.lm_decide(y0, yi, d, b, delta, xi, st, s)
 
         control.while_loop(more, trial, ())
-        return x, done, accepted, conv, delta_done
+        return st
 
     # the LM state of every stream, updated in place by the iterations
     # (the vmapped lax.while_loop's carry; ``k`` counts the loop's passes)
@@ -587,25 +703,21 @@ def align_batch(
         lam = torch.where(lm_lambda < 0, s.lm_init_lambda_factor * hmax, lm_lambda)
         degenerate = hmax < 1e-12
         if s.optimizer == "gn":
-            d = solve6_ldlt(H + 1e-12 * eye6, -b, ar.sub)
-            d = sel(degenerate, torch.zeros_like(d), d)
-            delta = ar.se3_exp(d)
+            _, delta = ar.lm_propose(H, b, lam_gn, degenerate)
             x_new = ar.compose(delta, x0)
-            conv_new = degenerate | _is_converged(delta, s)
+            conv_new = degenerate | _is_converged(delta, eps)
             H_new = H
         else:
-            x_new, done, accepted, conv_rej, delta = lm_inner(
-                run & ~degenerate, x0, lam, y0, H, b, aux
-            )
-            x_new = sel(degenerate, x0, x_new)
-            conv_new = degenerate | conv_rej | (accepted & _is_converged(delta, s))
-            failed.logical_or_(run & ~degenerate & ~done)
-            H_new = sel(accepted, H, H_st)
+            st = lm_inner(run & ~degenerate, x0, lam, y0, H, b, aux)
+            x_new = _sel(degenerate, x0, st.x)
+            conv_new = degenerate | st.conv | (st.accepted & _is_converged(st.delta_done, eps))
+            failed.logical_or_(run & ~degenerate & ~st.done)
+            H_new = _sel(st.accepted, H, H_st)
         y_st.copy_(torch.where(run, y0, y_st))
-        H_st.copy_(sel(run, H_new, H_st))
+        H_st.copy_(_sel(run, H_new, H_st))
         lm_lambda.copy_(torch.where(run, lam, lm_lambda))
         converged.logical_or_(run & conv_new)
-        x0.copy_(sel(run, x_new, x0))
+        x0.copy_(_sel(run, x_new, x0))
         it.add_(run.to(torch.int32))
         if s.record_trace:
             trace.index_copy_(1, k.long().reshape(1), x0[:, None])

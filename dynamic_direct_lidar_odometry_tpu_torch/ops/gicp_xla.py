@@ -24,7 +24,9 @@ optimized HLO, each fusion's LLVM IR and the disassembly of its object):
 
 Everything here runs on the host with numpy (the chains are sequential).
 It has the names of ``gicp.TORCH``, the card's arithmetic, and
-``gicp.arithmetic`` picks this module for host tensors.
+``gicp.arithmetic`` picks this module for host tensors. A lambda trial's
+``lm_propose`` and ``lm_decide`` are the LM loop's own torch code over
+these pieces.
 """
 
 from __future__ import annotations
@@ -156,6 +158,29 @@ def se3_exp(d: torch.Tensor) -> torch.Tensor:
     T[..., :3, 3] = t
     T[..., 3, 3] = 1.0
     return torch.from_numpy(T)
+
+
+def lm_propose(H: torch.Tensor, b: torch.Tensor, lam: torch.Tensor, zero=None):
+    """A lambda trial's step, as ``gicp.lm_propose``: ``gicp.lm_propose_plain``
+    with every ``v - p q`` of the solve one FMA (:func:`sub`) and
+    :func:`se3_exp`."""
+    from dynamic_direct_lidar_odometry_tpu_torch.ops import gicp
+
+    return gicp.lm_propose_plain(H, b, lam, zero, sub=sub, exp=se3_exp)
+
+
+def _dots(d: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """``d . g`` a ``torch.dot`` per stream."""
+    return torch.dot(d, g) if d.dim() == 1 else torch.stack([torch.dot(u, v) for u, v in zip(d, g)])
+
+
+def lm_decide(y0, yi, d, b, delta, xi, st, s) -> None:
+    """The rest of a lambda trial, as ``gicp.lm_decide``: ``gicp.lm_decide_plain``
+    (``st`` a ``gicp.TrialState``, updated in place) with the denominator
+    ``d . (lam d - b)`` a ``torch.dot`` per stream."""
+    from dynamic_direct_lidar_odometry_tpu_torch.ops import gicp
+
+    gicp.lm_decide_plain(y0, yi, d, b, delta, xi, st, s, dot=_dots)
 
 
 def rcar(R: np.ndarray, C: np.ndarray) -> np.ndarray:

@@ -38,8 +38,10 @@ for B streams at once, :func:`prepare_sparse_targets` /
 :func:`build` builds every library of the port at once, and
 :data:`LAUNCHES` counts every kernel: also the two that the JAX package
 left to XLA, ``jv_solve`` (``csrc/jv_solve.cu``, launched by
-``ops/hungarian.solve``) and ``regularize_plane`` (``csrc/plane_reg.cu``,
-``ops/covariance.regularize_plane``), and ``set_cond``
+``ops/hungarian.solve``), ``regularize_plane`` (``csrc/plane_reg.cu``,
+``ops/covariance.regularize_plane``) and GICP's lambda trial,
+``lm_propose`` and ``lm_decide`` (``csrc/lm_trial.cu``,
+``ops/gicp.lm_propose`` / ``lm_decide``), and ``set_cond``
 (``csrc/graph_cond.cu``, the conditional nodes' handle write of
 ``core/control.py``). The counts advance where a wrapper launches, so
 inside a captured graph at capture, not at replay; the same launch also
@@ -147,11 +149,12 @@ def nn1_sparse_reference(
 
 
 # every library of the port's CUDA sources: this module's, and those of
-# ``ops/hungarian.py`` (``jv_solve``) and ``ops/covariance.py``
-# (``plane_reg``), built together at first use
+# ``ops/hungarian.py`` (``jv_solve``), ``ops/covariance.py``
+# (``plane_reg``), ``core/control.py`` (``graph_cond``) and
+# ``ops/gicp.py`` (``lm_trial``), built together at first use
 _SOURCES = {"nn1_sparse": ("nn1_sparse.cu",), "knn_classes": ("knn_classes.cu",),
             "jv_solve": ("jv_solve.cu",), "plane_reg": ("plane_reg.cu",),
-            "graph_cond": ("graph_cond.cu",)}
+            "graph_cond": ("graph_cond.cu",), "lm_trial": ("lm_trial.cu",)}
 _BUILT: Dict[str, _cuda_build.Built] = {}
 
 
@@ -182,6 +185,8 @@ def build() -> Dict[str, _cuda_build.Built]:
         ("graph_cond", "ddlo_capture_into", [P, P]),
         ("graph_cond", "ddlo_capture_close", [P]),
         ("graph_cond", "ddlo_stream_create", [P]),
+        ("lm_trial", "ddlo_lm_propose", [P] * 4 + [I] + [P] * 3),
+        ("lm_trial", "ddlo_lm_decide", [P] * 15 + [I, ctypes.c_float, ctypes.c_float, P]),
     ):
         f = getattr(built[lib].lib, fn)
         f.argtypes = args

@@ -151,12 +151,19 @@ class _Holder:
     value: Any = None
 
 
+def device_events(prof) -> list:
+    """The device operations of a finished ``torch.profiler`` session:
+    its CUDA events but the device side of ``record_function`` ranges
+    (user annotations, no device work)."""
+    return [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+
+
 def device_busy_us(prof) -> tuple:
     """(busy microseconds, kernel count) of a finished ``torch.profiler``
-    session: the union of its device operations' intervals, so
-    overlapping kernels count once."""
-    iv = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                if e.device_type == torch.autograd.DeviceType.CUDA)
+    session: the union of its device operations' intervals
+    (:func:`device_events`), so overlapping kernels count once."""
+    iv = sorted((e.time_range.start, e.time_range.end) for e in device_events(prof))
     busy, cur_s, cur_e = 0.0, None, None
     for a, b in iv:
         if cur_e is None or a > cur_e:

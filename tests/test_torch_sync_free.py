@@ -17,6 +17,7 @@ into one of these bodies fails here, without a GPU.
 The gather and insert cases are also held bit-equal to the JAX package.
 """
 
+import collections
 import contextlib
 import dataclasses
 import sys
@@ -156,6 +157,34 @@ def test_align_lm_loops_read_only_predicates(arith, optimizer, monkeypatch):
     for name in ("T", "converged", "iterations", "final_error", "pose_trace", "num_inliers"):
         np.testing.assert_array_equal(n(getattr(got, name)), n(getattr(want, name)), err_msg=name)
     assert int(got.iterations) > 0 and control.PREDICATE_READS["while"] > int(got.iterations)
+
+
+@pytest.mark.parametrize("optimizer", ["lm", "gn"])
+def test_card_trials_reach_the_plain_versions_only_through_the_wrappers(optimizer, monkeypatch):
+    """On the card's path a lambda trial (and GN's step) calls the
+    wrappers ``gicp.lm_propose`` / ``lm_decide``, which launch the kernels
+    for CUDA tensors; here on CPU tensors they take the plain versions.
+    A trial that called ``lm_*_plain`` itself would bypass the kernels on
+    the card: it fails here, and so does a host read in the plain versions."""
+    src, mask, covs_s, tgt, tgt_m, covs_t = _pair(600, seed=3)
+    monkeypatch.setattr(gicp, "arithmetic", lambda dev: gicp.TORCH)
+    wrapped = collections.Counter()
+    for name in ("lm_propose", "lm_decide"):
+        plain, wrapper = getattr(gicp, f"{name}_plain"), getattr(gicp, name)
+
+        def guarded(*a, _plain=plain, _wrapper=wrapper, _name=name, **k):
+            if sys._getframe(1).f_code is not _wrapper.__code__:
+                raise AssertionError(f"{_name}_plain reached outside its wrapper")
+            wrapped[_name] += 1
+            return _plain(*a, **k)
+
+        monkeypatch.setattr(gicp, f"{name}_plain", guarded)
+    s = gicp.GICPSettings(max_correspondence_distance=1.0, optimizer=optimizer, nn_impl="sparse")
+    args = [t(a) for a in (src, mask, covs_s, tgt, tgt_m, covs_t)] + [torch.eye(4)]
+    with port_accelerator_paths(), no_host_reads():
+        res = gicp.align(*args, s)
+    assert int(res.iterations) > 0 and wrapped["lm_propose"] >= int(res.iterations)
+    assert wrapped["lm_decide"] == (wrapped["lm_propose"] if optimizer == "lm" else 0)
 
 
 def _ccl_inputs(seed, H=16, W=48):

@@ -25,7 +25,12 @@ warm-up:
   host's launch calls (``cudaLaunchKernel``, ``cudaGraphLaunch``), the
   graph's loop tests (``ddlo_set_cond``), the top kernels by device
   time, and the hand-written kernels' time and share of busy time;
-- each graph's capture seconds and the memory its capture reserved.
+- each graph's capture seconds and the memory its capture reserved;
+- the device kernels a scan by stage, from the profiled eager replay:
+  each stage above runs there inside a ``stage::<name>`` profiler range
+  (a synchronization at both ends), and a device operation belongs to
+  the range its launch falls in ("other": the step's own operations
+  between stages).
 
     python tools/torch_profile_slice.py --scans 12 --warmup 2
     python tools/torch_profile_slice.py --backends dense   # DDLO_NN_IMPL/KNN_IMPL=pallas
@@ -41,6 +46,7 @@ eager; device-busy time only: the profiler inflates the host side).
 from __future__ import annotations
 
 import argparse
+import bisect
 import collections
 import contextlib
 import json
@@ -50,6 +56,35 @@ import sys
 import time
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def by_stage(prof, kernels, n_scans) -> dict:
+    """Device operations a scan, and their device ms, by the
+    ``stage::<name>`` range they were launched in: each device operation
+    is linked (by the profiler's correlation id) to the host event that
+    launched it, and that event's start, on the host's clock like the
+    ranges, falls in one range or in none ("other"). ``unlinked``: device
+    operations that no host event claims."""
+    import torch
+
+    cpu = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CPU]
+    ranges = sorted((e.time_range.start, e.time_range.end, e.name[len("stage::"):]) for e in cpu
+                    if e.name.startswith("stage::"))
+    starts = [a for a, _, _ in ranges]
+    count, us = collections.Counter(), collections.Counter()
+    for e in cpu:
+        launched = [k for k in e.kernels if not k.name.startswith("stage::")]
+        if not launched:
+            continue
+        i = bisect.bisect_right(starts, e.time_range.start) - 1
+        stage = ranges[i][2] if i >= 0 and e.time_range.start <= ranges[i][1] else "other"
+        count[stage] += len(launched)
+        us[stage] += sum(k.duration for k in launched)
+    count["unlinked"] = len(kernels) - sum(count.values())
+    return dict(
+        kernels_per_scan_by_stage={k: v / n_scans for k, v in count.most_common()},
+        device_ms_per_scan_by_stage={k: us[k] / 1e3 / n_scans for k, _ in count.most_common()},
+    )
 
 
 def main(argv=None) -> int:
@@ -87,6 +122,7 @@ def main(argv=None) -> int:
     seq = sequence.steady_state_sequence(64)
     stages = collections.defaultdict(float)
     counting = [False]
+    spans = [False]  # profiler ranges around the stages (the profiled eager replay)
     depth = [0]  # time the outermost stage only (no double counting)
     calls = collections.Counter()  # tracker updates and covariance calls
 
@@ -95,6 +131,17 @@ def main(argv=None) -> int:
 
         def wrapper(*a, **k):
             calls[label if isinstance(label, str) else name] += 1
+            if spans[0] and not depth[0]:
+                key = label(a, k) if callable(label) else label
+                sync()
+                depth[0] += 1
+                try:
+                    with torch.profiler.record_function(f"stage::{key}"):
+                        out = fn(*a, **k)
+                        sync()
+                finally:
+                    depth[0] -= 1
+                return out
             if not counting[0] or depth[0]:
                 return fn(*a, **k)
             sync()
@@ -182,10 +229,13 @@ def main(argv=None) -> int:
         covariance_calls_per_scan=calls_.get("covariances", 0) / len(scans),
     )
     staged_ms, _ = replay(staged=True)
+    spans[0] = True
+    profs = {"eager": replay(profiled=True)[1]}
+    spans[0] = False
     for m, n, fn in originals:
         setattr(m, n, fn)
     pipeline.clear_graphs()  # captured with the stage wrappers
-    profs = {kind: replay(profiled=True, graph=kind == "graph")[1] for kind in ("graph", "eager")}
+    profs["graph"] = replay(profiled=True, graph=True)[1]
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -203,7 +253,7 @@ def main(argv=None) -> int:
     )
     report["graphs"] = pipeline.graph_stats()
     for kind, prof in profs.items():
-        kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        kernels = profiling.device_events(prof)  # the stage ranges' device side left out
         busy, _ = profiling.device_busy_us(prof)  # union of kernel intervals (us)
         by_name = collections.Counter()
         launches = collections.Counter()
@@ -214,7 +264,7 @@ def main(argv=None) -> int:
                                   if e.name in ("cudaLaunchKernel", "cudaGraphLaunch", "cudaMemcpyAsync"))
         own_us = {k: sum(t for n, t in by_name.items() if k in n)
                   for k in ("nn1_kernel", "knn_classes_kernel", "jv_solve_kernel", "plane_reg_kernel",
-                            "set_cond_kernel")}
+                            "set_cond_kernel", "lm_propose_kernel", "lm_decide_kernel")}
         report[kind] = dict(
             wall_ms_per_scan=plain_ms[kind], wall_ms_per_scan_runs=plain_runs[kind],
             # the hand-written kernels' device time and share of busy time
@@ -232,6 +282,8 @@ def main(argv=None) -> int:
                 for n, t in by_name.most_common(12)
             ],
         )
+        if kind == "eager":
+            report[kind].update(by_stage(prof, kernels, len(scans)))
     print(json.dumps(report, indent=1))
     return 0
 
