@@ -36,11 +36,14 @@ Phases, in order; any failure exits non-zero and prints no result:
    kernel's ptxas registers and spills, and the device operations one
    1-NN call costs (``torch.profiler``).
    The two kernels without a Pallas counterpart: ``jv_solve``
-   (``hungarian.solve``) against ``solve_plain`` on the card at N = 32, 64
-   and 128 (uniform costs, integer ties, BIG rows and columns, all BIG,
-   NaN costs; all, half, a quarter or no rows valid), and after phase 5 on
-   every tracker cost matrix that phase solved (timed on the one with the
-   most path steps); pass: identical ``col_of_row``. ``regularize_plane``
+   (``hungarian.solve``) against ``solve_plain`` on the card at N = 32, 64,
+   128 and 256 (uniform costs, integer ties, BIG rows and columns, all BIG,
+   NaN costs; all, half, a quarter or no rows valid; N = 256 is the
+   kernel's instance that reads rows from device memory; at N = 33 and 64
+   also a cost stored off a 16-byte boundary), and after phase 5 on every
+   tracker cost matrix that phase solved (timed on the one with the most
+   path steps; N = 64, 128 and 256 timed beside it); pass: identical
+   ``col_of_row``. ``regularize_plane``
    against ``regularize_plane_plain`` on the card and on the host, on the
    bench scan's window covariances, collinear, denormal-sized and FMA-tie
    rows; pass: every finite row bit-equal, one launch per call. Each
@@ -48,8 +51,12 @@ Phases, in order; any failure exits non-zero and prints no result:
    driver's ``set_cond`` (``csrc/graph_cond.cu``): a nested WHILE loop and
    an IF/ELSE branch captured into a graph and replayed on four inputs
    (0 to 27 inner turns), each replay without any synchronization,
-   against the eager driver (``core/control.read_predicate``); pass: the
-   same turn counts and values. GICP's lambda trial
+   against the eager driver (``core/control.read_predicate``); the
+   kernel's own test (``control.Test``) against its plain evaluation on
+   ``tests/torch_cond_cases.py``'s grid (each output byte), an IF / ELSE
+   pair on a test set by one launch, and CCL's 131,072-entry != test run
+   twice in a row on one scratch; pass: the same turn counts, values and
+   decisions, one launch per pair, the scratch left zeroed. GICP's lambda trial
    (``csrc/lm_trial.cu``): ``gicp.lm_propose`` against
    ``lm_propose_plain`` on ``tests/torch_lm_cases.py``'s systems (SPD,
    near-singular, a guarded pivot, the small-angle branch, d = 0, GN's
@@ -305,7 +312,7 @@ KERNELS = {
     # the capture driver's helper: the device-side test of a loop or branch
     # (the JAX package's lax.while_loop / lax.cond, e.g. the LM loop)
     "set_cond": dict(source=f"{PKG}/csrc/graph_cond.cu",
-                     replaces="dynamic_direct_lidar_odometry_tpu/ops/gicp.py:470"),
+                     replaces="dynamic_direct_lidar_odometry_tpu/ops/gicp.py:409"),
     # no Pallas kernel: XLA fuses the LM loop body's scalar math
     "lm_propose": dict(source=f"{PKG}/csrc/lm_trial.cu",
                        replaces="dynamic_direct_lidar_odometry_tpu/ops/gicp.py:361"),
@@ -586,25 +593,28 @@ PTXAS_NAMES = {"nn1_kernelILb0": "nn1_sparse", "nn1_kernelILb1": "nn1_dense",
 
 def ptxas_report(log: str) -> dict:
     """Registers, spill bytes and stack frame of each kernel, from nvcc's
-    ``-Xptxas -v`` output."""
+    ``-Xptxas -v`` output; a kernel built in several instances (template
+    arguments) gets the most registers and stack of any and the sum of
+    their spills."""
     out, cur = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             cur = next((v for k, v in PTXAS_NAMES.items() if k in m.group(1)), m.group(1))
-            out[cur] = {}
+            out.setdefault(cur, {})
             continue
         if cur is None:
             continue
+        rec = out[cur]
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m:
-            out[cur]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+            rec["spill_bytes"] = rec.get("spill_bytes", 0) + int(m.group(1)) + int(m.group(2))
         m = re.search(r"Used (\d+) registers", line)
         if m:
-            out[cur]["registers"] = int(m.group(1))
+            rec["registers"] = max(rec.get("registers", 0), int(m.group(1)))
         m = re.search(r"(\d+) bytes stack frame", line)
         if m:
-            out[cur]["stack_bytes"] = int(m.group(1))
+            rec["stack_bytes"] = max(rec.get("stack_bytes", 0), int(m.group(1)))
     return out
 
 
@@ -832,16 +842,19 @@ def check_regularize(query, k):
 
 
 def jv_cases(device):
-    """(name, cost, row_valid) for ``jv_solve`` at N = 32, 64 and 128:
+    """(name, cost, row_valid) for ``jv_solve`` at N = 32, 64, 128 and 256
+    (N = 256: the kernel's instance that reads rows from device memory):
     uniform costs, integer ties, BIG rows and columns, all BIG and NaN
-    costs, with all, half, a quarter or no rows valid (or no mask)."""
+    costs, with all, half, a quarter or no rows valid (or no mask); and at
+    N = 33 and 64 a cost stored 4 bytes past a 16-byte boundary (the bulk
+    copy's unaligned edges)."""
     import torch
 
     from dynamic_direct_lidar_odometry_tpu_torch.ops import hungarian
 
     rng = np.random.default_rng(11)
     out = []
-    for N in (32, 64, 128):
+    for N in (32, 64, 128, 256):
         for kind in ("uniform", "ties", "big", "all_big", "nan"):
             if kind == "uniform":
                 c = rng.uniform(0, 10, (N, N))
@@ -861,14 +874,53 @@ def jv_cases(device):
                                 ("quarter", np.arange(N) < N // 4), ("empty", np.zeros(N, bool))):
                 out.append((f"{kind}_N{N}_{rv_name}", cost,
                             None if rv is None else torch.as_tensor(rv, device=device)))
+    for N in (33, 64):
+        c = rng.integers(0, 6, (N, N)).astype(np.float32)
+        store = torch.zeros(N * N + 1, dtype=torch.float32, device=device)
+        cost = store[1:].view(N, N)
+        cost.copy_(torch.as_tensor(c, device=device))
+        for rv_name, rv in (("none", None), ("half", rng.random(N) < 0.5)):
+            out.append((f"ties_unaligned_N{N}_{rv_name}", cost,
+                        None if rv is None else torch.as_tensor(rv, device=device)))
     return out
 
 
-def check_jv(cases, tag, time_case=None):
+def _jv_timing(name, cost, rv) -> dict:
+    """Device ms, call ms, plain ms, bound and launch floor of one solve,
+    with its path steps (the plain version's host reads per step) and the
+    kernel's instance (the cost in shared memory or read from device
+    memory)."""
+    from dynamic_direct_lidar_odometry_tpu_torch.ops import hungarian, nn_cuda
+
+    N = cost.shape[0]
+    hungarian.HOST_READS.clear()
+    hungarian.solve_plain(cost, rv)
+    steps = hungarian.HOST_READS["path"]
+    valid = N if rv is None else int(rv.sum())
+    # bytes: the cost read once, row_valid, col_of_row; operations: per
+    # path step two subtractions and a potential update per column
+    bytes_ms = (4 * N * N + N + 4 * N) / HBM_BYTES_PER_S * 1e3
+    ops_ms = 3 * (N + 1) * steps / FP32_ISSUE_PER_S * 1e3
+    dev = device_times(lambda: hungarian.solve(cost, rv), KERNEL_NAMES["jv_solve"])
+    call_ms = cuda_ms(lambda: hungarian.solve(cost, rv))
+    timer = "profiler"
+    if dev["ms"] is None:
+        dev["ms"], timer = call_ms, "events"
+    bound, by = max((bytes_ms, "bytes"), (ops_ms, "operations"))
+    shared_max = nn_cuda.build()["jv_solve"].lib.ddlo_jv_shared_max_n()
+    return dict(timed_case=name, N=N, valid_rows=valid, path_steps=steps, timer=timer, call_ms=call_ms,
+                plain_ms=cuda_ms(lambda: hungarian.solve_plain(cost, rv), reps=5),
+                bound_ms=bound, bound_by=by, launch_floor_ms=launch_floor_ms(),
+                instance="cost in shared memory" if N <= shared_max else "rows from device memory",
+                warps=-(-(N + 1) // (32 * min(4, (N + 32) // 32))),
+                note="serial: bound by latency, not by bytes or operations", **dev)
+
+
+def check_jv(cases, tag, time_case=None, also_time=()):
     """``hungarian.solve`` (the kernel) against ``solve_plain`` on the card
     on every case: identical ``col_of_row``. ``time_case``: the index of
-    the case to time (device ms, call ms, plain ms, bound), with its path
-    steps (the plain version's host reads per step)."""
+    the case to time (:func:`_jv_timing`); ``also_time``: the names of
+    cases timed beside it (``timed_others``)."""
     import torch
 
     from dynamic_direct_lidar_odometry_tpu_torch.ops import hungarian
@@ -881,26 +933,9 @@ def check_jv(cases, tag, time_case=None):
     torch.cuda.synchronize()
     rec = dict(kernel="jv_solve", case=tag, cases=len(cases), cases_not_identical=differ, max_abs_err=0.0)
     if time_case is not None:
-        name, cost, rv = cases[time_case]
-        N = cost.shape[0]
-        hungarian.HOST_READS.clear()
-        hungarian.solve_plain(cost, rv)
-        steps = hungarian.HOST_READS["path"]
-        valid = N if rv is None else int(rv.sum())
-        # bytes: the cost read once, row_valid, col_of_row; operations: per
-        # path step two subtractions and a potential update per column
-        bytes_ms = (4 * N * N + N + 4 * N) / HBM_BYTES_PER_S * 1e3
-        ops_ms = 3 * (N + 1) * steps / FP32_ISSUE_PER_S * 1e3
-        dev = device_times(lambda: hungarian.solve(cost, rv), KERNEL_NAMES["jv_solve"])
-        call_ms = cuda_ms(lambda: hungarian.solve(cost, rv))
-        timer = "profiler"
-        if dev["ms"] is None:
-            dev["ms"], timer = call_ms, "events"
-        bound, by = max((bytes_ms, "bytes"), (ops_ms, "operations"))
-        rec.update(timed_case=name, N=N, valid_rows=valid, path_steps=steps, timer=timer, call_ms=call_ms,
-                   plain_ms=cuda_ms(lambda: hungarian.solve_plain(cost, rv), reps=5),
-                   bound_ms=bound, bound_by=by, note="serial: bound by latency, not by bytes or operations",
-                   **dev)
+        rec.update(_jv_timing(*cases[time_case]))
+    if also_time:
+        rec["timed_others"] = [_jv_timing(*c) for c in cases if c[0] in also_time]
     print("kernel check " + json.dumps(rec), flush=True)
     check(not differ, f"jv_solve {tag}: the kernel differs from solve_plain on {differ}")
     return rec
@@ -1697,16 +1732,100 @@ def _loop_fn(x0, n, m):
     return x, i, tot
 
 
+def _if_else_fn(x, c, f):
+    """An IF / ELSE pair on a ``control.Test``, for :func:`check_set_cond`."""
+    import torch_cond_cases as cc
+
+    from dynamic_direct_lidar_odometry_tpu_torch.core import control
+
+    y = x.clone()
+    control.cond(control.Test(c, cc.LIMIT, all_of=(f,)), lambda y: y.mul_(2.0), lambda y: y.sub_(1.0), (y,))
+    return y
+
+
+def check_set_cond_tests(dev) -> dict:
+    """The kernel's test (``control.Test``) against its plain evaluation:
+    each output byte on ``tests/torch_cond_cases.py``'s grid; an IF / ELSE
+    pair on a test captured once, replayed on every count and flag (one
+    ``set_cond`` a replay on the device counts); CCL's 131,072-entry !=
+    test launched twice in a row on one scratch, which the kernel leaves
+    zeroed. Times: a one-flag test and the CCL-sized one (device, launched
+    alone), with their bounds."""
+    import torch
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import torch_cond_cases as cc
+
+    from dynamic_direct_lidar_odometry_tpu_torch.core import control
+    from dynamic_direct_lidar_odometry_tpu_torch.utils import profiling
+
+    grid = cc.grid()
+    out = torch.zeros(len(grid), dtype=torch.bool, device=dev)
+    plain = []
+    for k, (_, *case) in enumerate(grid):
+        test = cc.to_test(*case, device=dev)
+        control.set_cond(test, out=out[k], scratch=control.scratch_for(test))
+        plain.append(test.plain())
+    want = torch.stack(plain).cpu()
+    numpy_want = torch.tensor([cc.expected(*case) for _, *case in grid])
+    grid_differ = [grid[k][0] for k in torch.nonzero(out.cpu() != want).reshape(-1).tolist()]
+    plain_differ = int((want != numpy_want).sum())
+
+    x = torch.arange(64, dtype=torch.float32, device=dev)
+    graph, pair_differ, pair_sets = None, [], []
+    for count in cc.COUNTS[1:]:
+        for fv in (False, True):
+            c = torch.tensor(count, dtype=torch.int32, device=dev)
+            f = torch.tensor(fv, device=dev)
+            graph = graph or control.Graph(_if_else_fn, (x, c, f))
+            with profiling.device_counts(dev) as counts, sync_free():
+                got = graph(x, c, f)
+            pair_sets.append(counts.get("set_cond", 0))
+            if not torch.equal(got, x * 2.0 if (count < cc.LIMIT and fv) else x - 1.0):
+                pair_differ.append((count, fv))
+
+    ccl_differ, scratch_left = [], 0
+    for name, a, b in cc.ccl_sized():
+        for count in cc.COUNTS:
+            test = cc.to_test(count, (), (), (a, b), device=dev)
+            scratch = control.scratch_for(test)
+            outs = torch.zeros(2, dtype=torch.bool, device=dev)
+            for r in range(2):
+                control.set_cond(test, out=outs[r], scratch=scratch)
+            if outs.tolist() != [cc.expected(count, (), (), (a, b))] * 2:
+                ccl_differ.append((name, count))
+            scratch_left += int(scratch.abs().sum())
+
+    one = torch.ones((), dtype=torch.bool, device=dev)
+    flag_test = control.Test(torch.zeros((), dtype=torch.int32, device=dev), 5, none_of=(~one, ~one))
+    o = torch.zeros((), dtype=torch.bool, device=dev)
+    _, a, b = cc.ccl_sized()[0]
+    ccl_test = cc.to_test(None, (), (), (a, b), device=dev)
+    ccl_scratch = control.scratch_for(ccl_test)
+    flag_t = device_times(lambda: control.set_cond(flag_test, out=o), "set_cond_kernel")
+    ccl_t = device_times(lambda: control.set_cond(ccl_test, out=o, scratch=ccl_scratch), "set_cond_kernel")
+    return dict(
+        grid_cases=len(grid), grid_cases_differ=grid_differ, grid_plain_vs_numpy_differ=plain_differ,
+        if_else_replays=len(pair_sets), if_else_differ=pair_differ, if_else_set_cond_per_replay=pair_sets,
+        ccl_sized_n=int(a.size), ccl_sized_launches=2 * len(cc.ccl_sized()) * len(cc.COUNTS),
+        ccl_sized_differ=ccl_differ, ccl_scratch_left_nonzero=scratch_left,
+        flag_test_kernel_ms=flag_t["kernel_ms"], flag_test_bound_ms=(1 + 1 + 4 + 1) / HBM_BYTES_PER_S * 1e3,
+        ccl_test_kernel_ms=ccl_t["kernel_ms"], ccl_test_bound_ms=(8 * a.size + 1) / HBM_BYTES_PER_S * 1e3,
+    )
+
+
 def check_set_cond(dev):
     """The capture driver's kernel (``csrc/graph_cond.cu``
     ``ddlo_set_cond``) against its plain version, the eager driver's
     predicate read (``core/control.read_predicate``): a nested WHILE loop
     and an IF/ELSE branch captured once and replayed on several inputs
-    (0 turns to 27), each replay under ``sync_free``. ``max_abs_err``: the
-    largest difference in the loops' turn counts and carried values
-    (0 = the same decisions). Times: the kernel's device time inside a
-    replay (profiler), a replay's, and one eager predicate read (a host
-    round trip, host clock)."""
+    (0 turns to 27), each replay under ``sync_free``; and the test forms
+    of :func:`check_set_cond_tests`. ``max_abs_err``: the largest
+    difference in the loops' turn counts and carried values, or the
+    number of the tests' cases decided differently (0 = the same
+    decisions). Times: the kernel's device time inside a replay
+    (profiler), a replay's, and one eager predicate read (a host round
+    trip, host clock), and the launch floor."""
     import torch
 
     from dynamic_direct_lidar_odometry_tpu_torch.core import control
@@ -1743,19 +1862,27 @@ def check_set_cond(dev):
         control.read_predicate(p)
         reads.append((time.perf_counter() - t0) * 1e3)
     kept = kept_out_of_pool and bool((keep == 7.0).all())
+    tests = check_set_cond_tests(dev)
+    decided_differently = (len(tests["grid_cases_differ"]) + tests["grid_plain_vs_numpy_differ"]
+                           + len(tests["if_else_differ"]) + len(tests["ccl_sized_differ"]))
     rec = dict(
-        kernel="set_cond", case="nested_while_if_else", inner_turns=turns, max_abs_err=err,
+        kernel="set_cond", case="nested_while_if_else", inner_turns=turns,
+        max_abs_err=max(err, float(decided_differently)),
         allocation_after_capture_outside_pool_and_kept=kept,
         set_cond_per_replay=len(sets), timer="profiler",
         ms=statistics.median(sets) / 1e3 if sets else None,
         kernel_ms=statistics.median(sets) / 1e3 if sets else None,
         call_ms=cuda_ms(lambda: graph(x0, nt, mt)), replay_graph_nodes_note="one replay of the whole loop",
         plain_ms=statistics.median(reads), plain_timer="host clock, one predicate read",
-        bound_ms=1 / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
-        note="one byte read per launch: latency-bound",
+        bound_ms=1 / HBM_BYTES_PER_S * 1e3, bound_by="bytes", launch_floor_ms=launch_floor_ms(),
+        note="one byte read per launch: latency-bound", **tests,
     )
     print("kernel check " + json.dumps(rec), flush=True)
     check(err == 0.0, f"set_cond: the graph's loops decide differently from the eager driver ({err})")
+    check(decided_differently == 0, f"set_cond: tests decided differently from the plain evaluation: {tests}")
+    check(all(n == 1 for n in tests["if_else_set_cond_per_replay"]),
+          f"set_cond: an IF / ELSE pair is not one launch: {tests['if_else_set_cond_per_replay']}")
+    check(tests["ccl_scratch_left_nonzero"] == 0, "set_cond: the CCL-sized test left its scratch set")
     check(bool(sets), "set_cond: the profiler shows no ddlo_set_cond inside a replay")
     check(kept, "an allocation after the capture lies in the graph's pool or was overwritten")
     return rec
@@ -2629,7 +2756,8 @@ def main(argv=None) -> int:
         for r in recs:
             records.setdefault(r["kernel"], []).append(r)
         records["regularize_plane"] = [check_regularize(query, k)]
-        records["jv_solve"] = [check_jv(jv_cases(dev), "random_ties_big_nan_N32_64_128")]
+        records["jv_solve"] = [check_jv(jv_cases(dev), "random_ties_big_nan_N32_64_128_256",
+                                        also_time=("uniform_N64_all", "uniform_N128_all", "uniform_N256_all"))]
         records["set_cond"] = [check_set_cond(dev)]
         lm_propose_cases, lm_decide_cases = lm_trial_cases(dev)
         records["lm_propose"] = [check_lm_propose(lm_propose_cases, "synthetic_and_half_angle_sweep", 0)]

@@ -4,17 +4,25 @@ that runs them on the card (the port's counterpart of ``jax.jit``).
 A loop's or branch's carry is a tuple of tensors allocated BEFORE it; the
 body updates the carry in place (``copy_``, ``index_copy_``,
 ``masked_fill_``) and never replaces a tensor of it; a predicate is a 0-d
-bool tensor computed on the device. One body serves two drivers:
+bool tensor computed on the device, or a :class:`Test`: the loop test in
+the form that one kernel launch evaluates on the device (a count under a
+limit, and any entry of a conjunction of flags or of ``a != b``), the
+counterpart of the one fused computation XLA makes of a ``cond_fun``.
+One body serves two drivers:
 
 - the eager driver (the CPU, and the card outside a capture) runs the
   body and reads only the predicate between turns
-  (:func:`read_predicate`), exactly where a conditional node decides;
+  (:func:`read_predicate`; a :class:`Test` evaluated by
+  :meth:`Test.plain`, its plain torch expression), exactly where a
+  conditional node decides;
 - the capture driver (the card inside :func:`capture`) adds a CUDA
   conditional node to the graph being captured, a WHILE for a loop and
   an IF for a branch (``cond`` with a false branch is two IFs, on the
-  predicate and on its negation), captures the body into the node's body
-  graph on a stream of its own, and sets the node's handle on the device
-  (``csrc/graph_cond.cu``). Nothing is read on the host.
+  predicate and on its negation, both handles set by one launch),
+  captures the body into the node's body graph on a stream of its own,
+  and sets the node's handle on the device with :func:`set_cond`
+  (``csrc/graph_cond.cu``), which evaluates the test itself. Nothing is
+  read on the host.
 
 During a capture every allocation of the capturing thread goes to the
 graph's private pool, on the capture stream and on the body streams
@@ -44,7 +52,7 @@ import ctypes
 import os
 import threading
 import time
-from typing import Any, Callable, List, Sequence
+from typing import Any, Callable, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -62,9 +70,61 @@ MAX_BRANCHES = profiling.MAX_COUNT_ROWS - 1
 _TLS = threading.local()
 
 
-def read_predicate(pred: torch.Tensor, kind: str = "while") -> bool:
-    """The eager driver's one host read: the predicate, between turns of
-    a loop or before a branch."""
+class Test(NamedTuple):
+    """A loop's or branch's test in the form that :func:`set_cond`
+    evaluates on the device in one launch::
+
+        (count is None or count < limit) and any(term(i) for i < n)
+
+    ``term(i)`` is ``a[i] != b[i]`` for ``differ=(a, b)`` (two int32
+    arrays of n entries), else the conjunction of ``all_of[k][i]`` and of
+    ``not none_of[k][i]`` (bool tensors of n entries each, at most three
+    in all; a 0-d flag is n = 1; no flag: true). ``count`` is a 0-d int32
+    tensor, ``limit`` an int. :meth:`plain` is the plain torch
+    expression, which the eager driver reads."""
+
+    count: Optional[torch.Tensor] = None
+    limit: int = 0
+    all_of: Tuple[torch.Tensor, ...] = ()
+    none_of: Tuple[torch.Tensor, ...] = ()
+    differ: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+
+    def tensors(self) -> list:
+        return [x for x in ((self.count,) + self.all_of + self.none_of + tuple(self.differ or ()))
+                if x is not None]
+
+    def plain(self) -> torch.Tensor:
+        """The test as a 0-d bool tensor, by torch operations."""
+        if self.differ is not None:
+            term = self.differ[0] != self.differ[1]
+        else:
+            term = None
+            for f in self.all_of:
+                term = f if term is None else term & f
+            for f in self.none_of:
+                term = ~f if term is None else term & ~f
+            if term is None:
+                term = torch.ones((), dtype=torch.bool, device=self.tensors()[0].device)
+        pred = term.any() if term.dim() else term
+        return pred if self.count is None else (self.count < self.limit) & pred
+
+
+Predicate = Union[torch.Tensor, Test]
+
+
+def _as_test(pred: Predicate) -> Test:
+    """A tensor predicate as a test of one 0-d flag."""
+    if isinstance(pred, Test):
+        return pred
+    return Test(all_of=(pred.reshape(()).to(torch.bool),))
+
+
+def read_predicate(pred: Predicate, kind: str = "while") -> bool:
+    """The eager driver's one host read: the predicate (a :class:`Test`
+    evaluated by its plain expression), between turns of a loop or before
+    a branch."""
+    if isinstance(pred, Test):
+        pred = pred.plain()
     PREDICATE_READS[kind] += 1
     return bool(pred)
 
@@ -95,10 +155,11 @@ class _Capture:
         self.depth = 0
 
 
-def _active(t: torch.Tensor):
-    """The capture under way if ``t`` is on the card and its stream is
+def _active(pred: Predicate):
+    """The capture under way if ``pred`` is on the card and its stream is
     capturing; None for the eager driver. A capture that
     :func:`capture` did not begin raises."""
+    t = pred.tensors()[0] if isinstance(pred, Test) else pred
     if not t.is_cuda or not torch.cuda.is_current_stream_capturing():
         return None
     cap = getattr(_TLS, "capture", None)
@@ -110,25 +171,74 @@ def _active(t: torch.Tensor):
     return cap
 
 
-def _node(is_while: bool, pred: torch.Tensor):
-    """Add a conditional node on the current (capturing) stream after a
-    device write of its handle from ``pred``; returns (handle, body)."""
-    lib = _lib()
-    stream = torch.cuda.current_stream().cuda_stream
-    handle, body = ctypes.c_ulonglong(0), ctypes.c_void_p(0)
-    _check(lib.ddlo_cond_handle(stream, ctypes.byref(handle)), "cudaGraphConditionalHandleCreate")
-    _set_cond(handle.value, pred)
-    _check(lib.ddlo_cond_node(stream, int(is_while), handle.value, ctypes.byref(body)),
-           "cudaGraphAddNode (conditional)")
-    return handle.value, body.value
+def _handle() -> int:
+    """A conditional handle in the graph that the current stream captures."""
+    handle = ctypes.c_ulonglong(0)
+    _check(_lib().ddlo_cond_handle(torch.cuda.current_stream().cuda_stream, ctypes.byref(handle)),
+           "cudaGraphConditionalHandleCreate")
+    return handle.value
 
 
-def _set_cond(handle: int, pred: torch.Tensor) -> None:
-    """Launch ``ddlo_set_cond``: the handle := ``pred``, on the device."""
+def _node(is_while: bool, handle: int) -> int:
+    """Add a conditional node on ``handle`` after the work the current
+    (capturing) stream has captured (its :func:`set_cond`); returns the
+    node's body graph."""
+    body = ctypes.c_void_p(0)
+    _check(_lib().ddlo_cond_node(torch.cuda.current_stream().cuda_stream, int(is_while), handle,
+                                 ctypes.byref(body)), "cudaGraphAddNode (conditional)")
+    return body.value
+
+
+def scratch_for(pred: Predicate) -> Optional[torch.Tensor]:
+    """The zeroed scratch :func:`set_cond` needs for ``pred`` (one int32
+    on its device, which the kernel leaves zeroed), or None: only a
+    ``differ`` test over more entries than one block takes. Allocated
+    once per call site (in a capture: in the graph's pool)."""
+    test = _as_test(pred)
+    if test.differ is None:
+        return None
+    a = test.differ[0]
+    if _lib().ddlo_set_cond_blocks(a.numel(), 1) <= 1:
+        return None
+    return torch.zeros(1, dtype=torch.int32, device=a.device)
+
+
+def set_cond(pred: Predicate, handles: Sequence[int] = (), out: Optional[torch.Tensor] = None,
+             scratch: Optional[torch.Tensor] = None) -> None:
+    """Launch ``ddlo_set_cond`` on the current stream: evaluate ``pred``
+    (a :class:`Test`, or a tensor as a test of one 0-d flag) on the
+    device, set ``handles[0]`` to it and ``handles[1]`` (if given) to its
+    negation, and write it to ``out`` (one bool, if given). ``scratch``:
+    :func:`scratch_for`'s. The test's plain version is
+    :meth:`Test.plain`."""
     from dynamic_direct_lidar_odometry_tpu_torch.ops import nn_cuda
 
-    pred = pred.reshape(()).to(torch.bool).contiguous()
-    nn_cuda.run_kernel(_lib().ddlo_set_cond, "set_cond", pred, handle)
+    test = _as_test(pred)
+    if not test.tensors():
+        raise ValueError("control.set_cond: a test with no tensor has no device")
+    if test.differ is not None:
+        if test.all_of or test.none_of:
+            raise ValueError("control.Test: differ= takes no flags")
+        flags, nflags, neg = [x.reshape(-1) for x in test.differ], 0, 0
+        want = torch.int32
+    else:
+        flags = [f.reshape(-1) for f in test.all_of + test.none_of]
+        nflags, neg = len(flags), sum(1 << k for k in range(len(test.all_of), len(flags)))
+        want = torch.bool
+    n = flags[0].numel() if flags else 1
+    if len(flags) > 3 or len(handles) > 2 or any(
+            f.dtype != want or f.numel() != n or not f.is_contiguous() for f in flags):
+        raise ValueError(f"control.set_cond: expected at most three {want} arrays of one size, "
+                         f"got {[(f.dtype, tuple(f.shape)) for f in flags]}")
+    if test.count is not None and (test.count.dtype != torch.int32 or test.count.numel() != 1):
+        raise ValueError(f"control.set_cond: count must be a 0-d int32, got {test.count.dtype}")
+    if out is not None and (out.dtype != torch.bool or out.numel() != 1):
+        raise ValueError("control.set_cond: out must be one bool")
+    flags = flags + [None] * (3 - len(flags))
+    h = list(handles) + [0] * (2 - len(handles))
+    nn_cuda.run_kernel(_lib().ddlo_set_cond, "set_cond", *flags, nflags, neg,
+                       int(test.differ is not None), n, test.count, int(test.limit), h[0], h[1],
+                       len(handles), out, scratch)
 
 
 @contextlib.contextmanager
@@ -150,11 +260,11 @@ def _body(cap: _Capture, body: int):
     _check(err, "cudaStreamEndCapture (body)")
 
 
-def while_loop(cond_fn: Callable[..., torch.Tensor], body_fn: Callable[..., None],
+def while_loop(cond_fn: Callable[..., Predicate], body_fn: Callable[..., None],
                carry: Sequence[torch.Tensor]):
     """``lax.while_loop`` in place: while ``cond_fn(*carry)`` (a 0-d bool
-    tensor) holds, ``body_fn(*carry)`` updates the carry. Returns the
-    carry."""
+    tensor or a :class:`Test`) holds, ``body_fn(*carry)`` updates the
+    carry. Returns the carry."""
     carry = tuple(carry)
     pred = cond_fn(*carry)
     cap = _active(pred)
@@ -163,18 +273,20 @@ def while_loop(cond_fn: Callable[..., torch.Tensor], body_fn: Callable[..., None
             body_fn(*carry)
             pred = cond_fn(*carry)
         return carry
-    handle, body = _node(True, pred)
-    with _body(cap, body):
+    scratch = scratch_for(pred)
+    handle = _handle()
+    set_cond(pred, (handle,), scratch=scratch)
+    with _body(cap, _node(True, handle)):
         body_fn(*carry)
-        _set_cond(handle, cond_fn(*carry))
+        set_cond(cond_fn(*carry), (handle,), scratch=scratch)
     return carry
 
 
-def cond(pred: torch.Tensor, true_fn: Callable[..., None],
+def cond(pred: Predicate, true_fn: Callable[..., None],
          false_fn: Callable[..., None] | None, carry: Sequence[torch.Tensor] = ()):
     """``lax.cond`` in place: ``true_fn(*carry)`` if ``pred`` (a 0-d bool
-    tensor) holds, else ``false_fn(*carry)`` (None: nothing). Returns the
-    carry."""
+    tensor or a :class:`Test`) holds, else ``false_fn(*carry)`` (None:
+    nothing). Returns the carry."""
     carry = tuple(carry)
     cap = _active(pred)
     if cap is None:
@@ -183,14 +295,13 @@ def cond(pred: torch.Tensor, true_fn: Callable[..., None],
         elif false_fn is not None:
             false_fn(*carry)
         return carry
-    # the predicate is fixed before either branch writes the carry
-    p = pred.reshape(()).to(torch.bool).clone()
-    handle, body = _node(False, p)
-    with _body(cap, body):
+    # one launch decides both branches before either writes the carry
+    handles = (_handle(),) if false_fn is None else (_handle(), _handle())
+    set_cond(pred, handles, scratch=scratch_for(pred))
+    with _body(cap, _node(False, handles[0])):
         true_fn(*carry)
     if false_fn is not None:
-        handle, body = _node(False, torch.logical_not(p))
-        with _body(cap, body):
+        with _body(cap, _node(False, handles[1])):
             false_fn(*carry)
     return carry
 

@@ -5,8 +5,10 @@ Same linearization (NN correspondences, Mahalanobis weights
 and the same Levenberg-Marquardt / Gauss-Newton loops as the JAX
 package. Each ``lax.while_loop`` of :func:`align` is a
 ``core/control.while_loop`` over an LM state held in device tensors and
-updated in place: on the card inside a captured graph a WHILE node
-decides on the device; outside one the loop reads only its predicate.
+updated in place, its test a ``control.Test`` (the count under its
+bound, the flags): on the card inside a captured graph a WHILE node
+decides on the device, the test one kernel launch; outside one the loop
+reads only its predicate.
 All scalar LM state stays in f32 on the device, so the accept/reject
 decisions are the JAX package's arithmetic; :func:`align_batch` runs its
 loops the same way, over "any stream still running". The rounding-sensitive steps
@@ -516,7 +518,7 @@ def align(
         )
 
         def more(*_):
-            return (st.j < s.lm_max_iterations) & ~st.done & ~skip
+            return control.Test(st.j, s.lm_max_iterations, none_of=(st.done, skip))
 
         def trial(*_):
             # a trial runs only while the stream is active: act stays true
@@ -541,7 +543,7 @@ def align(
     trace = torch.zeros((s.max_iterations if s.record_trace else 0, 4, 4), dtype=f32, device=dev)
 
     def running(*_):
-        return (it < s.max_iterations) & ~converged & ~failed
+        return control.Test(it, s.max_iterations, none_of=(converged, failed))
 
     def iteration(*_):
         y0, H, b, aux = lin(x0)
@@ -671,7 +673,7 @@ def align_batch(
                         *flags(3), run.clone(), torch.zeros((), dtype=torch.int32, device=dev))
 
         def more(*_):
-            return (st.j < s.lm_max_iterations) & st.act.any()
+            return control.Test(st.j, s.lm_max_iterations, all_of=(st.act,))
 
         def trial(*_):
             d, delta = ar.lm_propose(H, b, lam)
@@ -694,7 +696,7 @@ def align_batch(
     trace = torch.zeros((Bn, s.max_iterations if s.record_trace else 0, 4, 4), dtype=f32, device=dev)
 
     def running(*_):
-        return (k < s.max_iterations) & (~converged & ~failed).any()
+        return control.Test(k, s.max_iterations, none_of=(converged, failed))
 
     def iteration(*_):
         run = ~converged & ~failed

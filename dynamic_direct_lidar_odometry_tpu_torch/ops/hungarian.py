@@ -4,7 +4,8 @@ The Jonker-Volgenant successive-shortest-augmenting-path solve on a
 padded N x N cost matrix, with the JAX package's f32 arithmetic. The JAX
 package runs its ``lax`` loops on the device as one program. Here
 :func:`solve` launches ``csrc/jv_solve.cu`` for a CUDA cost: the whole
-solve in one block, one launch, no host read (counted in
+solve in one block (one warp up to N = 127, the cost matrix staged in
+shared memory up to N = 239), one launch, no host read (counted in
 ``nn_cuda.LAUNCHES["jv_solve"]``). For a CPU cost it runs
 :func:`solve_plain`, the kernel's plain version: the same loops in
 Python over tensors, whose shortest-path loop reads one value pair back

@@ -178,8 +178,10 @@ def build() -> Dict[str, _cuda_build.Built]:
         ("knn_classes", "ddlo_knn_classes_queries_per_block", []),
         ("knn_classes", "ddlo_knn_classes_unit_rows", []),
         ("jv_solve", "ddlo_jv_solve", [P, P, I, P, P]),
+        ("jv_solve", "ddlo_jv_shared_max_n", []),
         ("plane_reg", "ddlo_plane_reg", [P, I, P, P]),
-        ("graph_cond", "ddlo_set_cond", [P, ctypes.c_ulonglong, P]),
+        ("graph_cond", "ddlo_set_cond", [P] * 3 + [I] * 4 + [P, I] + [ctypes.c_ulonglong] * 2 + [I] + [P] * 3),
+        ("graph_cond", "ddlo_set_cond_blocks", [I, I]),
         ("graph_cond", "ddlo_cond_handle", [P, P]),
         ("graph_cond", "ddlo_cond_node", [P, I, ctypes.c_ulonglong, P]),
         ("graph_cond", "ddlo_capture_into", [P, P]),
@@ -219,17 +221,19 @@ def _check_inputs(q, tt, counts=None, lists=None):
 
 
 def run_kernel(fn, name, *args):
-    """Launch ``fn`` on the current stream of the first arg's device; raise
-    on a refused launch; count it under ``name`` in :data:`LAUNCHES` (on
-    the host) and on the device (``utils.profiling.count``, after the
-    launch on the same stream: a graph replay counts it too). Tensors
-    pass as their data pointers, None as a null pointer."""
-    with torch.cuda.device(args[0].device):
+    """Launch ``fn`` on the current stream of the first tensor arg's
+    device; raise on a refused launch; count it under ``name`` in
+    :data:`LAUNCHES` (on the host) and on the device
+    (``utils.profiling.count``, after the launch on the same stream: a
+    graph replay counts it too). Tensors pass as their data pointers,
+    None as a null pointer."""
+    device = next(a.device for a in args if isinstance(a, torch.Tensor))
+    with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(*(a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args), stream)
         if err != 0:
             raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-        profiling.count(args[0].device, name)
+        profiling.count(device, name)
     LAUNCHES[name] += 1
 
 

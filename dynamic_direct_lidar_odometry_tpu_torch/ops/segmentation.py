@@ -13,8 +13,9 @@ wrap). The JAX package computes these run minima with packed cummax
 scans; here each run gets an id (a cumulative count of breaks along the
 axis) and one scatter-min + gather per axis does the same. The loop
 stops, as in the JAX package, when a sweep changes nothing or after
-``max_iters`` sweeps: a ``core/control.while_loop`` whose test is a
-device flag (any label changed), so inside a captured graph no sweep
+``max_iters`` sweeps: a ``core/control.while_loop`` whose test, a
+``control.Test`` (the sweep count under ``max_iters`` and any label
+changed), is one kernel launch inside a captured graph, so no sweep
 reads the host. Each call adds its sweeps to the device count
 ``ccl_sweeps`` (``utils.profiling.count``); :data:`SWEEPS` counts the
 eager driver's reads of the flag.
@@ -141,7 +142,7 @@ def label_components(
     it = torch.zeros((), dtype=torch.int32, device=dev)
 
     def more(L, prev, it):
-        return (it < max_iters) & torch.any(L != prev)
+        return control.Test(it, max_iters, differ=(L, prev))
 
     def sweep(L, prev, it):
         prev.copy_(L)
