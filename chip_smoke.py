@@ -56,19 +56,32 @@ Phases, in order; any failure exits non-zero and prints no result:
    ``tests/torch_cond_cases.py``'s grid (each output byte), an IF / ELSE
    pair on a test set by one launch, and CCL's 131,072-entry != test run
    twice in a row on one scratch; pass: the same turn counts, values and
-   decisions, one launch per pair, the scratch left zeroed. GICP's lambda trial
-   (``csrc/lm_trial.cu``): ``gicp.lm_propose`` against
-   ``lm_propose_plain`` on ``tests/torch_lm_cases.py``'s systems (SPD,
-   near-singular, a guarded pivot, the small-angle branch, d = 0, GN's
-   zeroed streams; B = 1 and 8) and on a dense sweep of half-angles
-   (2^20 streams through ``sinf`` / ``cosf``), ``gicp.lm_decide`` against
-   ``lm_decide_plain`` on its scenarios (accept, grow, converge on a
-   reject, the 0/0 guard, frozen streams) and on rejected trials whose
-   convergence test steps through its bar an ulp at a time; after phase
-   5, both on every lambda trial that phase's eager run made (its inputs
-   recorded); pass: every output bit-equal on every stream, one launch
-   per call. Each prints device ms, call ms, plain ms, its bound and the
-   launch floor (a one-element add's device time).
+   decisions, one launch per pair, the scratch left zeroed. GICP's lambda loop
+   (``csrc/lm_trial.cu``): ``gicp.lm_inner`` (the whole loop, one
+   cluster of 8 blocks per stream) against ``lm_inner_plain`` on
+   ``tests/torch_lm_cases.py``'s GICP-like streams at B = 1 and 8: the
+   shared-memory route at 16,384 points, 17,000 (no multiple of the
+   4,096 partials) and 1,001 (streams off a 16-byte boundary), the
+   device-memory route at 65,536 (the CLI cloud), batches holding a free
+   loop, a far start, a loop rejected until lm_max_iterations, a step
+   d = 0, a degenerate stream and one that does not run, and
+   lm_max_iterations 3 and 0; after phase 5, on every lambda loop that
+   phase's eager run made (its inputs recorded), its last 8 loops
+   stacked (B = 8) and its last loop four times over at 65,536 points
+   (B = 1 and 8; device memory). The split trial: ``gicp.lm_propose``
+   against ``lm_propose_plain`` on the systems (SPD, near-singular, a
+   guarded pivot, the small-angle branch, d = 0, GN's zeroed streams;
+   B = 1 and 8) and on a dense sweep of half-angles (2^20 streams through
+   ``sinf`` / ``cosf``), ``gicp.lm_decide`` against ``lm_decide_plain``
+   on its scenarios (accept, grow, converge on a reject, the 0/0 guard,
+   frozen streams) and on rejected trials whose convergence test steps
+   through its bar an ulp at a time; after phase 5, both on the first
+   trial of every loop of that phase's eager run; pass: every output
+   bit-equal on every stream, one launch per call. Each prints device
+   ms, call ms, plain ms, its bound (``lm_inner``: the points' bytes
+   read once and the trials' operations) and the launch floor (a
+   one-element add's device time); ``lm_inner`` its route, trials and
+   the shared-memory route's largest N.
 4. Plain DLO (``bench_config(dynamic_detection=False)``) on the first 16
    scans of ``steady_state_sequence(64)`` (rendered afresh, checked
    against the committed checksum) through ``pipeline.init_state`` /
@@ -83,9 +96,10 @@ Phases, in order; any failure exits non-zero and prints no result:
    read of the JV solve (``hungarian.HOST_READS``), one
    ``regularize_plane`` launch per ``plane_covariances`` call (the same
    launch checks in phases 6, 9, 11, 15 and 16); on the graph run and on
-   the eager one, one ``lm_propose`` and one ``lm_decide`` launch per
-   lambda trial (the eager run's error re-evaluations) and no eager
-   ``solve6_ldlt``, ``se3_exp`` or plain trial in any trial.
+   the eager one, one ``lm_inner`` launch per lambda loop (the eager
+   run's ``gicp.TORCH.lm_inner`` calls), no ``lm_propose`` or
+   ``lm_decide`` launch and no error re-evaluation, and no eager
+   ``solve6_ldlt``, ``se3_exp`` or plain version in any loop.
 6. Detection and tracking of one phase-5 scan on the card against the
    port on the host, from the same inputs. Pass: labels, pixel_slot,
    valid slots, tracker integer/bool fields equal; box states and tracker
@@ -146,8 +160,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    single-stream ``gicp.align`` calls iterations and inliers equal,
    translation within 1e-5 m, rotation within 1e-6; the replay's device
    counts exactly one ``nn1_sparse_batched`` launch per batched
-   linearization and no ``nn1_sparse`` launch, one ``lm_propose`` and one
-   ``lm_decide`` per lambda trial of the eager call. Times (CUDA events, after
+   linearization and no ``nn1_sparse`` launch, one ``lm_inner`` per
+   lambda loop of the eager call and no split trial. Times (CUDA events, after
    capture): registrations/s at B = 1 and B = 8, graph and eager in
    turns, each graph's capture seconds and pool bytes, and the batched
    entry's device ms at the final poses against its bound.
@@ -181,7 +195,10 @@ Phases, in order; any failure exits non-zero and prints no result:
    ranks' states and outputs bit-equal after every scan, residuals
    gathered to full length, and on each rank ``nn1_sparse`` launched for
    every linearization and ``knn_classes`` for the shard's covariances
-   (8,192 queries against the whole scan); the step itself raises if an
+   (8,192 queries against the whole scan), and the split trial on every
+   rank (``lm_propose`` and ``lm_decide`` once per trial, no
+   ``lm_inner``: the error is summed over the ranks between the two);
+   the step itself raises if an
    op has no deterministic implementation or the ranks' states differ
    (``distributed.check_agree``). Times (CUDA events, each rank): ms per
    scan and per registration, and the agreement check alone; two ranks
@@ -212,8 +229,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    the phase); every replay after the capture under
    ``torch.cuda.set_sync_debug_mode("error")``; one ``cudaGraphLaunch``
    per step (profiler) with ``nn1_sparse`` (3 a scan), ``jv_solve``,
-   ``regularize_plane``, ``set_cond`` and the lambda trial's kernels
-   running inside it, on the device counts and, in a process that has
+   ``regularize_plane``, ``set_cond`` and ``lm_inner`` running inside it
+   (and no split trial), on the device counts and, in a process that has
    captured no other graph (this check runs right after phase 2), by
    the profiler's names: once phases 4-12 have run in the process, the
    profiler names kernels inside conditional bodies wrongly, and the
@@ -252,8 +269,9 @@ launches summed over phases 4, 5, 9, 10, 11, 12, 14, 15 and 16;
 ``nn1_sparse_batched``'s from phases 13 and 15; ``knn_classes``' from
 phases 7, 15 and 16, phase 15's summed over both ranks; ``jv_solve``'s and
 ``regularize_plane``'s from phases 5, 6, 9, 11, 15 and 16; ``set_cond``'s
-from phase 17's graph run; ``lm_propose``'s and ``lm_decide``'s from every
-phase that counts with ``main_path_counts`` and phase 13); the last line
+from phase 17's graph run; ``lm_inner``'s from every phase that counts
+with ``main_path_counts`` and phase 13; ``lm_propose``'s and
+``lm_decide``'s from those and phase 15's ranks); the last line
 is ``{"ok": true, "device": {...}}`` (full runs only).
 """
 
@@ -313,7 +331,9 @@ KERNELS = {
     # (the JAX package's lax.while_loop / lax.cond, e.g. the LM loop)
     "set_cond": dict(source=f"{PKG}/csrc/graph_cond.cu",
                      replaces="dynamic_direct_lidar_odometry_tpu/ops/gicp.py:409"),
-    # no Pallas kernel: XLA fuses the LM loop body's scalar math
+    # no Pallas kernel: XLA fuses the LM loop's scalar math and its error
+    "lm_inner": dict(source=f"{PKG}/csrc/lm_trial.cu",
+                     replaces="dynamic_direct_lidar_odometry_tpu/ops/gicp.py:350"),
     "lm_propose": dict(source=f"{PKG}/csrc/lm_trial.cu",
                        replaces="dynamic_direct_lidar_odometry_tpu/ops/gicp.py:361"),
     "lm_decide": dict(source=f"{PKG}/csrc/lm_trial.cu",
@@ -343,6 +363,10 @@ PLANE_F32_OPS, PLANE_F64_OPS = 116, 34
 # and sinf / cosf about 20 each on their fast path; the decision 67 (the
 # denominator 23, rho 2, the convergence test 33, lambda and nu 9)
 LM_PROPOSE_F32_OPS, LM_DECIDE_F32_OPS = 305, 67
+# lm_inner: per point and evaluation of the error 45 (the transform 18,
+# e 6, M e 15, e . Me 5, the running sum 1); per trial the proposal, the
+# compose (16 entries of 4 products and 3 sums) and the decision
+LM_POINT_F32_OPS, LM_TRIAL_F32_OPS = 45, LM_PROPOSE_F32_OPS + 112 + LM_DECIDE_F32_OPS
 
 
 def lm_propose_bytes(streams: int, zero: bool) -> int:
@@ -364,8 +388,16 @@ def lm_decide_bytes(streams: int, accepted: int, ended: int) -> int:
     return streams * per + 8 + accepted * 4 * (16 + 16) + ended * 4 * (4 + 16)
 
 
-# launches of the lambda trial kernels on the main path, by kernel, summed
-# over every block that main_path_counts (and phase 13) counted
+def lm_inner_bytes(N: int, active: int, streams: int) -> int:
+    """Bytes ``ddlo_lm_inner`` moves: each stream that runs trials reads
+    its N points once (source 12, M 36, B 12, validity 1 bytes a point),
+    H's lower triangle, b, lam and x0; every stream reads its two flags
+    and writes lam, nu, x, delta_done, its four flags and its count."""
+    return active * (61 * N + 4 * (21 + 6 + 1 + 16)) + streams * (2 + 4 * (2 + 16 + 16) + 4 + 4)
+
+
+# launches of the lambda loop's kernels on the main path, by kernel, summed
+# over every block that main_path_counts (and phases 13 and 15) counted
 PATH_LAUNCHES = collections.Counter()
 
 
@@ -588,7 +620,7 @@ PTXAS_NAMES = {"nn1_kernelILb0": "nn1_sparse", "nn1_kernelILb1": "nn1_dense",
                "knn_classes_kernelILb0": "knn_classes", "knn_classes_kernelILb1": "knn_classes_sparse",
                "jv_solve_kernel": "jv_solve", "plane_reg_kernel": "regularize_plane",
                "set_cond_kernel": "set_cond", "lm_propose_kernel": "lm_propose",
-               "lm_decide_kernel": "lm_decide"}
+               "lm_decide_kernel": "lm_decide", "lm_inner_kernel": "lm_inner"}
 
 
 def ptxas_report(log: str) -> dict:
@@ -623,7 +655,8 @@ KERNEL_NAMES = {"nn1_sparse": "nn1_kernel<false>", "nn1_dense": "nn1_kernel<true
                 "knn_classes": "knn_classes_kernel<false>",
                 "knn_classes_sparse": "knn_classes_kernel<true>",
                 "jv_solve": "jv_solve_kernel", "regularize_plane": "plane_reg_kernel",
-                "lm_propose": "lm_propose_kernel", "lm_decide": "lm_decide_kernel"}
+                "lm_propose": "lm_propose_kernel", "lm_decide": "lm_decide_kernel",
+                "lm_inner": "lm_inner_kernel"}
 
 
 def _record(kernel, case, Q, T, err, identical, pairs, nbytes, call, plain_ms, cdist_ms, **extra):
@@ -966,31 +999,34 @@ def lm_trial_cases(dev):
 
 @contextlib.contextmanager
 def recorded_trials():
-    """Every lambda trial on the card's path in the block: the inputs of
-    ``gicp.TORCH.lm_propose`` and ``lm_decide`` (cloned before the call:
-    ``lm_decide`` updates its state in place), the trials (error
-    re-evaluations, ``gicp._compute_error``) and the calls of the pieces
-    that no trial on the card may run eagerly (the plain versions, the
-    eager solve and exponential)."""
+    """Every lambda loop on the card's path in the block: the inputs of
+    ``gicp.TORCH.lm_inner`` (cloned before the call: it updates lambda in
+    place) and each call's trial counts (read at the end of the block,
+    not during it), the split trials (error re-evaluations,
+    ``gicp._compute_error``) and the calls of the pieces that no loop on
+    the card may run eagerly (the plain versions, the eager solve and
+    exponential)."""
+    import torch
+
     from dynamic_direct_lidar_odometry_tpu_torch.core import se3
     from dynamic_direct_lidar_odometry_tpu_torch.ops import gicp
 
-    rec = dict(propose=[], decide=[], trials=0, eager_pieces=0)
+    rec = dict(inner=[], loops=0, trials=0, split_trials=0, eager_pieces=0)
+    counts = []
 
     def clone(xs):
         return tuple(None if x is None else x.clone() for x in xs)
 
-    def propose(*a, _real=gicp.TORCH.lm_propose):
-        rec["propose"].append(clone(a))
-        return _real(*a)
-
-    def decide(*a, _real=gicp.TORCH.lm_decide):
-        *ins, st, settings = a
-        rec["decide"].append((clone(ins), gicp.TrialState(*clone(st)), settings))
-        return _real(*a)
+    def inner(*a, _real=gicp.TORCH.lm_inner):
+        *ins, settings = a
+        rec["inner"].append((clone(ins), settings))
+        rec["loops"] += 1
+        st = _real(*a)
+        counts.append(st.j.sum())
+        return st
 
     def error(*a, _real=gicp._compute_error, **k):
-        rec["trials"] += 1
+        rec["split_trials"] += 1
         return _real(*a, **k)
 
     def piece(real):
@@ -999,11 +1035,10 @@ def recorded_trials():
             return real(*a, **k)
         return f
 
-    patches = [(gicp.TORCH, "lm_propose", propose), (gicp.TORCH, "lm_decide", decide),
-               (gicp, "_compute_error", error)]
+    patches = [(gicp.TORCH, "lm_inner", inner), (gicp, "_compute_error", error)]
     patches += [(m, n, piece(getattr(m, n))) for m, n in (
-        (gicp, "lm_propose_plain"), (gicp, "lm_decide_plain"), (gicp, "solve6_ldlt"),
-        (gicp, "_se3_exp_card"), (se3, "se3_exp"))]
+        (gicp, "lm_inner_plain"), (gicp, "lm_propose_plain"), (gicp, "lm_decide_plain"),
+        (gicp, "solve6_ldlt"), (gicp, "_se3_exp_card"), (se3, "se3_exp"))]
     saved = [(m, n, getattr(m, n)) for m, n, _ in patches]
     for m, n, f in patches:
         setattr(m, n, f)
@@ -1012,6 +1047,7 @@ def recorded_trials():
     finally:
         for m, n, f in saved:
             setattr(m, n, f)
+        rec["trials"] = int(torch.stack(counts).sum()) if counts else 0
 
 
 _FLOOR = {}
@@ -1141,14 +1177,155 @@ def check_lm_decide(cases, tag, time_case=None):
     return rec
 
 
+def lm_inner_cases(dev):
+    """``gicp.lm_inner``'s synthetic cases from ``tests/torch_lm_cases.py``
+    on the card, each (name, (arguments, settings)): GICP-like streams at
+    B = 1 and 8 on the shared-memory route (16,384 points, the bench
+    cloud; 17,000, no multiple of P; 1,001, streams off a 16-byte
+    boundary) and the device-memory route (65,536, the CLI cloud); the
+    B = 8 batches hold a free loop, a far start, a loop whose every step
+    climbs until lm_max_iterations, a step d = 0, a degenerate stream and
+    one that does not run; also lm_max_iterations 3 and 0."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import torch_lm_cases as lc
+
+    out = []
+    for B, N in ((1, 16384), (8, 16384), (8, 17000), (3, 1001), (1, 65536), (8, 65536)):
+        args = [x.to(dev) for x in lc.inner_case(B, N, seed=B + N, lead=B > 1)]
+        out.append((f"B{B}_N{N}", (args, lc.S)))
+    args = [x.to(dev) for x in lc.inner_case(8, 16384, seed=7)]
+    out += [("B8_N16384_cap3", (args, lc.S._replace(lm_max_iterations=3))),
+            ("B8_N16384_cap0", (args, lc.S._replace(lm_max_iterations=0)))]
+    return out
+
+
+def bench_inner_cases(rec):
+    """``gicp.lm_inner``'s cases from a recorded eager run (``recorded_trials``):
+    every lambda loop at B = 1; the last 8 loops of the last loop's
+    settings stacked (B = 8); the last loop's 16,384 points four times
+    over, each copy rolled, at the CLI cloud's 65,536 (the device-memory
+    route), at B = 1 and stacked with itself moved (B = 8)."""
+    import torch
+
+    loops = [(f"loop_{i}", (list(ins), st)) for i, (ins, st) in enumerate(rec["inner"])]
+    settings = rec["inner"][-1][1]
+    same = [ins for ins, st in rec["inner"] if st == settings][-8:]
+    cols = [[ins[k] for ins in same] for k in range(10)]
+    batch = [None if c[0] is None else torch.stack(c) for c in cols]
+    last = list(rec["inner"][-1][0])
+    N = last[4].shape[0]
+    big = list(last)
+    for k in (4, 5, 6, 7):  # src, valid, M, B
+        big[k] = torch.cat([last[k].roll(777 * c, 0) for c in range(4)])
+    big8 = [None if x is None else torch.stack([x] * 8) for x in big]
+    big8[4] = big8[4] + torch.arange(8, device=big8[4].device, dtype=torch.float32)[:, None, None] * 0.01
+    return loops, [(f"stacked_{len(same)}_loops", (batch, settings)),
+                   (f"last_loop_x4_N{4 * N}", (big, settings)), (f"last_loop_x4_N{4 * N}_B8", (big8, settings))]
+
+
+def bench_split_trials(rec):
+    """The split trial's cases from a recorded eager run: each lambda
+    loop's first trial, as ``lm_propose`` and ``lm_decide`` would run it
+    (the proposal, ``xi``, ``y0`` and ``yi`` from the plain pieces)."""
+    import torch
+
+    from dynamic_direct_lidar_odometry_tpu_torch.ops import gicp
+
+    propose, decide = [], []
+    for i, ((x0, lam, H, b, src, valid, M, B, deg, run), s) in enumerate(rec["inner"]):
+        propose.append((f"loop_{i}", (H, b, lam)))
+        d, delta = gicp.lm_propose_plain(H, b, lam)
+        xi = gicp._compose_ltr(delta, x0)
+        ins = (gicp.error_fixed(x0, src, valid, M, B), gicp.error_fixed(xi, src, valid, M, B), d, b, delta, xi)
+        f = torch.zeros((), dtype=torch.bool, device=lam.device)
+        st = gicp.TrialState(lam.clone(), torch.full_like(lam, 2.0), x0.clone(),
+                             torch.eye(4, device=lam.device), f.clone(), f.clone(), f.clone(), ~deg,
+                             torch.zeros((), dtype=torch.int32, device=lam.device))
+        decide.append((f"loop_{i}", (ins, st, s)))
+    return propose, decide
+
+
+def check_lm_inner(cases, tag, time_case=None):
+    """``gicp.lm_inner`` (the kernel) against ``lm_inner_plain`` on the
+    card, each on its own copy of lambda: every field of the returned
+    state bit-equal on every stream, one launch per call. ``time_case``:
+    the index of the case to time (lambda evolves over the timed calls,
+    as a caller's would; ``timed_trials`` are the last call's)."""
+    import torch
+
+    from dynamic_direct_lidar_odometry_tpu_torch.ops import gicp, nn_cuda
+
+    lib = nn_cuda.build()["lm_trial"].lib
+    check(lib.ddlo_lm_inner_layout() == gicp.LM_CLUSTER * 1000 + gicp.LM_THREADS,
+          "lm_inner: the kernel's cluster layout is not gicp.LM_CLUSTER x LM_THREADS")
+    shared_max = lib.ddlo_lm_inner_shared_max_n()
+
+    def both(args, settings):
+        a, b = list(args), list(args)
+        a[1], b[1] = args[1].clone(), args[1].clone()
+        return gicp.lm_inner(*a, settings), gicp.lm_inner_plain(*b, settings)
+
+    differ, streams, err, trials, routes = [], 0, 0.0, 0, collections.Counter()
+    before = nn_cuda.LAUNCHES["lm_inner"]
+    for name, (args, settings) in cases:
+        n = args[1].numel()
+        got, want = both(args, settings)
+        bad = {f: k for f, a, b in zip(gicp.TrialState._fields, got, want) if (k := _streams_differ(a, b, n))}
+        streams += n
+        trials += int(want.j.sum())
+        routes["shared" if args[4].shape[-2] <= shared_max else "device"] += 1
+        if bad:
+            differ.append((name, bad))
+        err = max(err, max(float(torch.nan_to_num(a.float() - b.float()).abs().max()) for a, b in zip(got, want)))
+    torch.cuda.synchronize()
+    launched = nn_cuda.LAUNCHES["lm_inner"] - before
+    rec = dict(kernel="lm_inner", case=tag, cases=len(cases), streams=streams, trials=trials,
+               routes=dict(routes), shared_max_n=shared_max, cases_not_identical=differ, max_abs_err=err,
+               launches=launched)
+    if time_case is not None:
+        name, (args, settings) = cases[time_case]
+        a, b = list(args), list(args)
+        a[1], b[1] = args[1].clone(), args[1].clone()
+        call = lambda: gicp.lm_inner(*a, settings)  # noqa: E731
+        plain = lambda: gicp.lm_inner_plain(*b, settings)  # noqa: E731
+        dev = device_times(call, KERNEL_NAMES["lm_inner"])
+        call_ms = cuda_ms(call)
+        timer = "profiler"
+        if dev["ms"] is None:
+            dev["ms"], timer = call_ms, "events"
+        st = call()
+        active = int(st.j.gt(0).sum()) if settings.lm_max_iterations > 0 else 0
+        t_trials = int(st.j.sum())
+        N = args[4].shape[-2]
+        ops = (t_trials + active) * N * LM_POINT_F32_OPS + t_trials * LM_TRIAL_F32_OPS
+        ops_ms = ops / FP32_ISSUE_PER_S * 1e3
+        nbytes = lm_inner_bytes(N, active, args[1].numel())
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        bound, by = max((bytes_ms, "bytes"), (ops_ms, "operations"))
+        rec.update(timed_case=name, timed_streams=args[1].numel(), timed_points=N, timed_trials=t_trials,
+                   route="shared" if N <= shared_max else "device", timed_bytes=nbytes, timed_f32_ops=ops,
+                   timer=timer, call_ms=call_ms, plain_ms=cuda_ms(plain, reps=5),
+                   plain_device_ops_per_call=device_busy_ms(plain)[1], bound_ms=bound, bound_by=by,
+                   bound_parts_ms=dict(bytes=bytes_ms, f32=ops_ms), launch_floor_ms=launch_floor_ms(), **dev)
+    print("kernel check " + json.dumps(rec), flush=True)
+    check(launched == len(cases), f"lm_inner: {launched} launches for {len(cases)} calls")
+    check(not differ, f"lm_inner {tag}: the kernel differs from its plain version on {differ}")
+    return rec
+
+
 def check_trial_launches(tag, launches, rec):
-    """One ``lm_propose`` and one ``lm_decide`` launch per lambda trial
-    (``recorded_trials``' error re-evaluations) and no eager piece."""
-    got = dict(lm_propose=launches.get("lm_propose", 0), lm_decide=launches.get("lm_decide", 0),
-               trials=rec["trials"], eager_pieces=rec["eager_pieces"])
-    print(f"{tag} lm trials " + json.dumps(got), flush=True)
-    check(rec["trials"] > 0 and got["lm_propose"] == got["lm_decide"] == rec["trials"],
-          f"{tag}: lm_propose / lm_decide launched {got}")
+    """An LM ``align`` without a process group runs each lambda loop as
+    one ``lm_inner`` launch (``recorded_trials``' loops), no split trial
+    (no ``lm_propose`` / ``lm_decide`` launch, no error re-evaluation)
+    and no eager piece."""
+    got = dict(lm_inner=launches.get("lm_inner", 0), lm_propose=launches.get("lm_propose", 0),
+               lm_decide=launches.get("lm_decide", 0), loops=rec["loops"], trials=rec["trials"],
+               split_trials=rec["split_trials"], eager_pieces=rec["eager_pieces"])
+    print(f"{tag} lm loops " + json.dumps(got), flush=True)
+    check(rec["loops"] > 0 and got["lm_inner"] == rec["loops"] and rec["trials"] >= rec["loops"],
+          f"{tag}: lm_inner launched {got}")
+    check(got["lm_propose"] == got["lm_decide"] == rec["split_trials"] == 0,
+          f"{tag}: a split trial ran in an LM align without a group: {got}")
     check(rec["eager_pieces"] == 0, f"{tag}: {rec['eager_pieces']} eager trial pieces ran on the card")
     return got
 
@@ -1192,7 +1369,7 @@ def main_path_counts(tag=None):
         yield out
     out.update({k: 0 for k in KERNELS}, tracker_updates=0, covariance_calls=0, ccl_sweeps=0)
     out.update(counts)
-    PATH_LAUNCHES.update({k: out[k] for k in ("lm_propose", "lm_decide")})
+    PATH_LAUNCHES.update({k: out[k] for k in ("lm_inner", "lm_propose", "lm_decide")})
     if tag is not None:
         check_card_kernels(tag, out, out["tracker_updates"], out["covariance_calls"],
                            sum(hungarian.HOST_READS.values()))
@@ -2116,7 +2293,8 @@ def graph_phase(cfg, seq, card, fresh_names=None):
     # the kernels inside the replays, on the device counts (the profiler's
     # names are checked before any other capture: graph_names_phase)
     check(counted["nn1_sparse"] >= 3 * n and counted["jv_solve"] >= n and counted["regularize_plane"] >= n
-          and counted["set_cond"] >= n and counted["lm_propose"] == counted["lm_decide"] >= n,
+          and counted["set_cond"] >= n and counted["lm_inner"] >= n
+          and counted["lm_propose"] == counted["lm_decide"] == 0,
           f"the kernels did not run inside the replays: {counted}")
     check(prof_graph["host_launch_calls_per_scan"].get("cudaGraphLaunch", 0) == 1,
           f"a graph step is not one graph launch: {prof_graph['host_launch_calls_per_scan']}")
@@ -2194,7 +2372,7 @@ def batched_align_phase(problems, card):
         with sync_free():
             res = aligner(*batch)
     got = dict(got)
-    PATH_LAUNCHES.update({k: got.get(k, 0) for k in ("lm_propose", "lm_decide")})
+    PATH_LAUNCHES.update({k: got.get(k, 0) for k in ("lm_inner", "lm_propose", "lm_decide")})
     differ = _bits_differ(res, eager)
     iters = res.iterations.tolist()
     lin = max(iters) + (1 if settings.compute_residuals else 0)
@@ -2593,6 +2771,12 @@ def point_parallel_phase(problems, seq, ref, card):
         for part in [k["align"]["launches"]] + [r["launches"] for r in k["pipeline"]]:
             for name, v in part.items():
                 total[name] = total.get(name, 0) + v
+    # a point-sharded group keeps the split trial (the error is summed over
+    # the ranks between the proposal and the decision)
+    for k in ranks:
+        for part in [k["align"]["launches"]] + [r["launches"] for r in k["pipeline"]]:
+            check(part.get("lm_inner", 0) == 0 and part.get("lm_propose", 0) == part.get("lm_decide", 0) > 0,
+                  f"point-parallel: the split trial's launches {part}")
     return total
 
 
@@ -2763,6 +2947,7 @@ def main(argv=None) -> int:
         records["lm_propose"] = [check_lm_propose(lm_propose_cases, "synthetic_and_half_angle_sweep", 0)]
         records["lm_decide"] = [check_lm_decide(lm_decide_cases, "scenarios_and_convergence_boundary", 0)]
         del lm_propose_cases, lm_decide_cases
+        records["lm_inner"] = [check_lm_inner(lm_inner_cases(dev), "synthetic_routes_and_scenarios", 4)]
 
     sparse_launches = {}  # nn1_sparse per phase that runs it, each read right after it
     card_launches = {}  # jv_solve and regularize_plane per phase, each read right after it
@@ -2831,12 +3016,19 @@ def main(argv=None) -> int:
             rec = check_jv(cases, "bench_tracker_16_scans", time_case=int(np.argmax(steps_of)))
             rec.update(path_steps_per_solve=steps_of)
             records["jv_solve"].insert(0, rec)
-            # phase 3's lambda trial checks on every trial of the eager run,
-            # timed on its first (an S2S trial, one stream)
-            records["lm_propose"].insert(0, check_lm_propose(
-                [(f"trial_{i}", a) for i, a in enumerate(trials["propose"])], "bench_trials_16_scans", 0))
-            records["lm_decide"].insert(0, check_lm_decide(
-                [(f"trial_{i}", a) for i, a in enumerate(trials["decide"])], "bench_trials_16_scans", 0))
+            # phase 3's lambda loop check on every loop of the eager run,
+            # timed on its first (an S2S loop, one stream), the last 8
+            # loops stacked and the last at 65,536 points (device memory)
+            loops, more = bench_inner_cases(trials)
+            records["lm_inner"][:0] = [
+                check_lm_inner(loops, "bench_loops_16_scans", 0),
+                check_lm_inner(more[:1], "bench_stacked_B8", 0),
+                check_lm_inner(more[1:], "bench_last_loop_x4_device_route", 0)]
+            # the split trial's checks on each loop's first trial
+            propose, decide = bench_split_trials(trials)
+            records["lm_propose"].insert(0, check_lm_propose(propose, "bench_first_trials_16_scans", 0))
+            records["lm_decide"].insert(0, check_lm_decide(decide, "bench_first_trials_16_scans", 0))
+            del loops, more, propose, decide
 
     if 6 in phases:
         # ---- 6. detection + tracking, card vs host ----
@@ -2916,6 +3108,7 @@ def main(argv=None) -> int:
         card_launches[15] = {k: pt_launches.get(k, 0) for k in ("jv_solve", "regularize_plane")}
         for name in ("nn1_sparse_batched", "knn_classes"):
             launches[name] = launches.get(name, 0) + pt_launches.get(name, 0)
+        PATH_LAUNCHES.update({k: pt_launches.get(k, 0) for k in ("lm_propose", "lm_decide")})
 
     if 16 in phases:
         # ---- 16. the accuracy tool's card legs, 64 scans ----
@@ -2929,7 +3122,7 @@ def main(argv=None) -> int:
         print(f"at {time.perf_counter() - t_start:.1f} s: phase 17", flush=True)
         launches["set_cond"] = graph_phase(cfg, seq, card, fresh_names)["launches"]["set_cond"]
     launches["nn1_sparse"] = sum(sparse_launches.values())
-    launches.update({k: PATH_LAUNCHES[k] for k in ("lm_propose", "lm_decide")})
+    launches.update({k: PATH_LAUNCHES[k] for k in ("lm_inner", "lm_propose", "lm_decide")})
     for k in ("jv_solve", "regularize_plane"):
         launches[k] = sum(v.get(k, 0) for v in card_launches.values())
     print(f"nn1_sparse launches by phase: {json.dumps(sparse_launches)}", flush=True)

@@ -15,8 +15,10 @@ loops the same way, over "any stream still running". The rounding-sensitive step
 (point transform, sums, inverse, compose, and a lambda trial's solve,
 exponential and update) come from :func:`arithmetic`: on the host
 ``ops/gicp_xla.py`` (XLA's CPU order, the jitted JAX package's bits), on
-the card :data:`TORCH`, whose trial is two kernels of
-``csrc/lm_trial.cu`` (:func:`lm_propose`, :func:`lm_decide`).
+the card :data:`TORCH`, whose whole lambda loop is one launch of
+``csrc/lm_trial.cu`` (:func:`lm_inner`) and whose split trial, for a
+point-sharded group and the GN step, two (:func:`lm_propose`,
+:func:`lm_decide`).
 
 Correspondence backend (``GICPSettings.nn_impl``): "sparse" launches the
 CUDA kernel on CUDA tensors (``ops/nn_cuda.py``) with the target-side
@@ -208,7 +210,7 @@ class TrialState(NamedTuple):
     accepted: torch.Tensor  # bool
     conv: torch.Tensor  # bool: converged on a rejected step
     act: torch.Tensor  # bool: the stream still runs trials
-    j: torch.Tensor  # () int32 trials run
+    j: torch.Tensor  # () int32 trials run (:func:`lm_inner`: each stream's, int32)
 
 
 def _sel(m: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -338,15 +340,132 @@ def lm_decide(y0, yi, d, b, delta, xi, st: TrialState, s) -> None:
                        s.rotation_epsilon, s.transformation_epsilon)  # ctypes rounds them to f32
 
 
+# lm_inner's error: blocks of a cluster and threads of a block of
+# ``csrc/lm_trial.cu``'s ``ddlo_lm_inner`` (its LM_CLUSTER * LM_THREADS
+# partial sums fix the order of the sum)
+LM_CLUSTER, LM_THREADS = 8, 512
+
+
+def _compose_ltr(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """``A @ B`` of 4x4 poses, each entry summed left to right (the
+    kernel's order; ``torch.matmul`` on the card picks its own)."""
+    out = A[..., :, 0:1] * B[..., 0:1, :]
+    for k in range(1, 4):
+        out = out + A[..., :, k:k + 1] * B[..., k:k + 1, :]
+    return out
+
+
+def _halve(v: torch.Tensor) -> torch.Tensor:
+    """Sum the last axis (a power of two) by halving steps, ``v[i] +
+    v[i + h]``, and drop it."""
+    h = v.shape[-1] // 2
+    while h:
+        v = v[..., :h] + v[..., h:2 * h]
+        h //= 2
+    return v[..., 0]
+
+
+def error_fixed(T, src, valid, M, B) -> torch.Tensor:
+    """``sum e^T M e`` at the pose ``T`` in ``ddlo_lm_inner``'s fixed order
+    (per stream over a leading batch axis): per point ``_transform_points``,
+    ``e = (B - src_t) * valid``, each row of ``M e`` and ``e . Me`` summed
+    left to right; the points zero-padded to K rows of P = LM_CLUSTER *
+    LM_THREADS partials, the rows summed left to right, then halving steps
+    over the 32 lanes, the warps and the blocks."""
+    src_t = _transform_points(T, src)
+    e = (B - src_t) * valid.to(src.dtype)[..., None]
+    e0, e1, e2 = e.unbind(-1)
+    Me = [M[..., r, 0] * e0 + M[..., r, 1] * e1 + M[..., r, 2] * e2 for r in range(3)]
+    q = e0 * Me[0] + e1 * Me[1] + e2 * Me[2]
+    P = LM_CLUSTER * LM_THREADS
+    N = q.shape[-1]
+    K = max(1, -(-N // P))
+    q = torch.nn.functional.pad(q, (0, K * P - N)).unflatten(-1, (K, P))
+    acc = q[..., 0, :]
+    for r in range(1, K):
+        acc = acc + q[..., r, :]
+    acc = _halve(acc.unflatten(-1, (LM_CLUSTER, LM_THREADS // 32, 32)))
+    return _halve(_halve(acc))
+
+
+def lm_inner_plain(x0, lam, H, b, src, valid, M, B, degenerate, run, s) -> TrialState:
+    """The plain version of ``csrc/lm_trial.cu``'s ``ddlo_lm_inner``: the
+    JAX package's lm_inner (one step_lm: lambda trials until one is
+    accepted, convergence on a rejected step, or ``s.lm_max_iterations``
+    trials) for every stream over the leading axes of ``lam``, as
+    ``s.lm_max_iterations`` masked turns with no host read. A stream runs
+    trials where ``run`` (None: all) and not ``degenerate``; one that has
+    ended is left unchanged bit for bit. A trial is
+    :func:`lm_propose_plain`, ``xi = delta x`` (:func:`_compose_ltr`), the
+    error at ``xi`` (:func:`error_fixed`, as the starting error y0 is
+    evaluated at ``x0``) and :func:`lm_decide_plain`. ``x0`` (..., 4, 4),
+    ``H`` (..., 6, 6), ``b`` (..., 6), ``src`` / ``B`` (..., N, 3),
+    ``valid`` (..., N), ``M`` (..., N, 3, 3). ``lam`` is updated in place;
+    returns the :class:`TrialState` (``j``: each stream's trials)."""
+    lead, dev = tuple(lam.shape), lam.device
+    act = ~degenerate if run is None else run & ~degenerate
+    st = TrialState(
+        lam, torch.full(lead, 2.0, dtype=torch.float32, device=dev), x0.clone(),
+        torch.eye(4, dtype=torch.float32, device=dev).expand(lead + (4, 4)).clone(),
+        *(torch.zeros(lead, dtype=torch.bool, device=dev) for _ in range(3)), act.clone(),
+        torch.zeros(lead, dtype=torch.int32, device=dev),
+    )
+    turns = torch.zeros((), dtype=torch.int32, device=dev)  # lm_decide_plain's one count
+    y0 = error_fixed(x0, src, valid, M, B)
+    for _ in range(s.lm_max_iterations):
+        d, delta = lm_propose_plain(H, b, st.lam)
+        xi = _compose_ltr(delta, st.x)
+        yi = error_fixed(xi, src, valid, M, B)
+        st.j.add_(st.act.to(torch.int32))
+        lm_decide_plain(y0, yi, d, b, delta, xi, st._replace(j=turns), s)
+    return st
+
+
+def lm_inner(x0, lam, H, b, src, valid, M, B, degenerate, run, s) -> TrialState:
+    """:func:`lm_inner_plain` on the card's terms: a CUDA ``lam`` launches
+    ``csrc/lm_trial.cu``'s ``ddlo_lm_inner`` (one cluster of 8 blocks per
+    stream runs its whole lambda loop; counted as ``lm_inner``) or raises;
+    a CPU ``lam`` runs the plain version; any other device raises. Both
+    give the same bits. ``B`` may be a strided view (the gathered target
+    features' first three columns); every other tensor is made
+    contiguous."""
+    if not lam.is_cuda:
+        if lam.device.type != "cpu":
+            raise ValueError(f"lm_inner: no kernel for a tensor on {lam.device}")
+        return lm_inner_plain(x0, lam, H, b, src, valid, M, B, degenerate, run, s)
+    lead = tuple(lam.shape)
+    N = src.shape[-2]
+    x0, H, b, src, valid, M = (t.contiguous() for t in (x0, H, b, src, valid, M))
+    f32, flag = torch.float32, torch.bool
+    _check_card("lm_inner", [lam, x0, H, b, src, valid, M, degenerate, run],
+                [lead, lead + (4, 4), lead + (6, 6), lead + (6,), lead + (N, 3), lead + (N,),
+                 lead + (N, 3, 3), lead, lead], [f32] * 4 + [f32, flag, f32, flag, flag])
+    if (B.device != lam.device or B.dtype != f32 or tuple(B.shape) != lead + (N, 3)
+            or B.stride(-1) != 1):
+        raise ValueError(f"lm_inner: expected B {lead + (N, 3)} f32 on {lam.device} with unit "
+                         f"column stride, got {B.dtype} {tuple(B.shape)} strides {B.stride()}")
+    nu = torch.empty(lead, dtype=f32, device=lam.device)
+    x, delta_done = (torch.empty(lead + (4, 4), dtype=f32, device=lam.device) for _ in range(2))
+    done, accepted, conv, act = (torch.empty(lead, dtype=flag, device=lam.device) for _ in range(4))
+    j = torch.empty(lead, dtype=torch.int32, device=lam.device)
+    lib = nn_cuda.build()["lm_trial"].lib
+    nn_cuda.run_kernel(lib.ddlo_lm_inner, "lm_inner", x0, lam, H, b, src, valid, M, B,
+                       B.stride(0) if lead else 0, B.stride(-2), run, degenerate, nu, x, delta_done,
+                       done, accepted, conv, act, j, lam.numel(), N, s.lm_max_iterations,
+                       s.rotation_epsilon, s.transformation_epsilon)  # ctypes rounds them to f32
+    return TrialState(lam, nu, x, delta_done, done, accepted, conv, act, j)
+
+
 # The card's arithmetic (eager PyTorch; it runs on any device). The LM
 # loops take every rounding-sensitive step from one such namespace;
-# ``gicp_xla`` has the same names. A lambda trial is ``lm_propose``, the
-# compose, the error and ``lm_decide``: on the card two kernels and ~12
-# operations.
+# ``gicp_xla`` has the same names but no ``lm_inner``: there a lambda
+# loop runs its trials one by one. On the card a lambda loop is one
+# launch (``lm_inner``); a point-sharded group's trial (its error summed
+# over the ranks) and the GN step keep ``lm_propose`` / ``lm_decide``.
 TORCH = types.SimpleNamespace(
     transform_points=_transform_points, compose=se3.compose,
     linearize_terms=_linearize_terms, error=_error,
-    lm_propose=lm_propose, lm_decide=lm_decide,
+    lm_propose=lm_propose, lm_decide=lm_decide, lm_inner=lm_inner,
 )
 
 
@@ -506,11 +625,19 @@ def align(
     lam_gn = torch.full((), 1e-12, dtype=f32, device=dev)
     eps = _conv_eps(s, dev)
 
+    fused = getattr(ar, "lm_inner", None) if axis_name is None else None
+
     def lm_inner(x, lam, y0, H, b, aux, skip):
         """One step_lm in place: loop over lambda until a step is accepted
         (rho >= 0), convergence is detected on a rejected step, or
-        lm_max_iterations is exhausted (``skip``: not at all). ``x`` and
-        ``lam`` are updated; returns the :class:`TrialState`."""
+        lm_max_iterations is exhausted (``skip``: not at all). ``lam`` is
+        updated; returns the :class:`TrialState` (its ``x`` the new
+        pose). Without a group the card's arithmetic runs the whole loop
+        in one call (``TORCH.lm_inner``)."""
+        if fused is not None:
+            _, valid, M, B, _ = aux
+            return fused(x, lam, H, b, src_pts, valid, M, B, skip, None, s)
+        x = x.clone()
         st = TrialState(
             lam, torch.full((), 2.0, dtype=f32, device=dev), x, torch.eye(4, dtype=f32, device=dev),
             *(torch.zeros((), dtype=torch.bool, device=dev) for _ in range(3)),
@@ -558,8 +685,8 @@ def align(
             conv_new = degenerate | _is_converged(delta, eps)
             H_st.copy_(H)
         else:
-            x_new = x0.clone()
-            st = lm_inner(x_new, lam, y0, H, b, aux, degenerate)
+            st = lm_inner(x0, lam, y0, H, b, aux, degenerate)
+            x_new = st.x
             conv_new = degenerate | st.conv | (st.accepted & _is_converged(st.delta_done, eps))
             failed.copy_(~st.done & ~degenerate)  # lm_max_iterations exhausted
             H_st.copy_(torch.where(st.accepted & ~degenerate, H, H_st))
@@ -665,12 +792,19 @@ def align_batch(
     def flags(n=1):
         return (torch.zeros(Bn, dtype=torch.bool, device=dev) for _ in range(n))
 
-    def lm_inner(run, x0, lam, y0, H, b, aux):
-        """step_lm for the streams in ``run``, frozen per stream as in
-        :func:`align`'s inner loop; ``lam`` is updated in place. Returns
-        the :class:`TrialState`."""
+    fused = getattr(ar, "lm_inner", None) if axis_name is None else None
+
+    def lm_inner(run, degenerate, x0, lam, y0, H, b, aux):
+        """step_lm for the streams in ``run`` that are not degenerate,
+        frozen per stream as in :func:`align`'s inner loop; ``lam`` is
+        updated in place. Returns the :class:`TrialState`. Without a
+        group the card's arithmetic runs every stream's loop in one call
+        (``TORCH.lm_inner``)."""
+        if fused is not None:
+            _, valid, M, B, _ = aux
+            return fused(x0, lam, H, b, src_pts, valid, M, B, degenerate, run, s)
         st = TrialState(lam, torch.full((Bn,), 2.0, dtype=f32, device=dev), x0.clone(), eye4.clone(),
-                        *flags(3), run.clone(), torch.zeros((), dtype=torch.int32, device=dev))
+                        *flags(3), run & ~degenerate, torch.zeros((), dtype=torch.int32, device=dev))
 
         def more(*_):
             return control.Test(st.j, s.lm_max_iterations, all_of=(st.act,))
@@ -710,8 +844,8 @@ def align_batch(
             conv_new = degenerate | _is_converged(delta, eps)
             H_new = H
         else:
-            st = lm_inner(run & ~degenerate, x0, lam, y0, H, b, aux)
-            x_new = _sel(degenerate, x0, st.x)
+            st = lm_inner(run, degenerate, x0, lam, y0, H, b, aux)
+            x_new = st.x  # a degenerate stream runs no trial: x0
             conv_new = degenerate | st.conv | (st.accepted & _is_converged(st.delta_done, eps))
             failed.logical_or_(run & ~degenerate & ~st.done)
             H_new = _sel(st.accepted, H, H_st)

@@ -39,9 +39,10 @@ for B streams at once, :func:`prepare_sparse_targets` /
 :data:`LAUNCHES` counts every kernel: also the two that the JAX package
 left to XLA, ``jv_solve`` (``csrc/jv_solve.cu``, launched by
 ``ops/hungarian.solve``), ``regularize_plane`` (``csrc/plane_reg.cu``,
-``ops/covariance.regularize_plane``) and GICP's lambda trial,
-``lm_propose`` and ``lm_decide`` (``csrc/lm_trial.cu``,
-``ops/gicp.lm_propose`` / ``lm_decide``), and ``set_cond``
+``ops/covariance.regularize_plane``) and GICP's lambda loop,
+``lm_inner`` (the whole loop) and ``lm_propose`` and ``lm_decide`` (a
+split trial) (``csrc/lm_trial.cu``, ``ops/gicp.lm_inner`` /
+``lm_propose`` / ``lm_decide``), and ``set_cond``
 (``csrc/graph_cond.cu``, the conditional nodes' handle write of
 ``core/control.py``). The counts advance where a wrapper launches, so
 inside a captured graph at capture, not at replay; the same launch also
@@ -189,6 +190,10 @@ def build() -> Dict[str, _cuda_build.Built]:
         ("graph_cond", "ddlo_stream_create", [P]),
         ("lm_trial", "ddlo_lm_propose", [P] * 4 + [I] + [P] * 3),
         ("lm_trial", "ddlo_lm_decide", [P] * 15 + [I, ctypes.c_float, ctypes.c_float, P]),
+        ("lm_trial", "ddlo_lm_inner", [P] * 8 + [ctypes.c_longlong, I] + [P] * 10 + [I] * 3
+         + [ctypes.c_float] * 2 + [P]),
+        ("lm_trial", "ddlo_lm_inner_shared_max_n", []),
+        ("lm_trial", "ddlo_lm_inner_layout", []),
     ):
         f = getattr(built[lib].lib, fn)
         f.argtypes = args

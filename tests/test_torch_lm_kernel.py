@@ -23,8 +23,9 @@ and ``ddlo_lm_decide``, wrapped by ``ops/gicp.lm_propose`` /
   trials that exhausts ``lm_max_iterations``.
 - ``align`` and ``align_batch`` with the card's arithmetic (``gicp.TORCH``)
   on the host against the JAX package (its ``align`` and
-  ``jax.vmap(gicp.align)``), at tests/test_torch_parallel.py's bars: each
-  trial runs ``lm_propose`` and ``lm_decide`` once.
+  ``jax.vmap(gicp.align)``), at tests/test_torch_parallel.py's bars: an LM
+  iteration's lambda loop is one ``lm_inner`` call and runs no split
+  trial; a GN iteration runs ``lm_propose`` once.
 - On the CPU the wrappers take the plain versions, never a CUDA build;
   other devices raise. The ``gpu`` cases hold the kernels to the plain
   versions bit for bit on the card (and a dense sweep of half-angles
@@ -169,14 +170,18 @@ def test_rejected_trials_exhaust_lm_max_iterations():
 
 
 def _count_trials(monkeypatch):
-    """Calls of the card arithmetic's trial functions and of the error
-    re-evaluation (one per LM trial)."""
-    calls = {"propose": 0, "decide": 0, "error": 0}
+    """Calls of the card arithmetic's trial functions, of the split
+    trial's error re-evaluation and of the whole lambda loop
+    (``lm_inner``, with the trials its streams ran)."""
+    calls = {"propose": 0, "decide": 0, "error": 0, "inner": 0, "inner_trials": 0}
     for key, ns, name in (("propose", gicp.TORCH, "lm_propose"), ("decide", gicp.TORCH, "lm_decide"),
-                          ("error", gicp, "_compute_error")):
+                          ("error", gicp, "_compute_error"), ("inner", gicp.TORCH, "lm_inner")):
         def wrap(*a, _fn=getattr(ns, name), _key=key, **k):
             calls[_key] += 1
-            return _fn(*a, **k)
+            out = _fn(*a, **k)
+            if _key == "inner":
+                calls["inner_trials"] += int(out.j.sum())
+            return out
         monkeypatch.setattr(ns, name, wrap)
     monkeypatch.setattr(gicp, "arithmetic", lambda dev: gicp.TORCH)
     return calls
@@ -199,9 +204,14 @@ def test_card_arithmetic_align_matches_jax(optimizer, monkeypatch):
     assert int(got.iterations) == int(ref.iterations) and int(got.num_inliers) == int(ref.num_inliers)
     np.testing.assert_allclose(got.T.numpy(), np.asarray(ref.T), rtol=0, atol=1e-6)
     if optimizer == "lm":
-        assert calls["propose"] == calls["decide"] == calls["error"] >= int(got.iterations) > 0
+        # one lambda loop per LM iteration, each one lm_inner call running
+        # at least one trial; no split trial
+        assert calls["inner"] == int(got.iterations) > 0
+        assert calls["inner_trials"] >= int(got.iterations)
+        assert calls["propose"] == calls["decide"] == calls["error"] == 0
     else:
-        assert calls["propose"] == int(got.iterations) and calls["decide"] == calls["error"] == 0
+        assert calls["propose"] == int(got.iterations)
+        assert calls["decide"] == calls["error"] == calls["inner"] == 0
 
 
 def test_card_arithmetic_align_batch_matches_jax_vmap(monkeypatch):
@@ -222,7 +232,10 @@ def test_card_arithmetic_align_batch_matches_jax_vmap(monkeypatch):
     np.testing.assert_allclose(res.T.numpy(), np.asarray(ref.T), atol=1e-5)
     for f in ("iterations", "num_inliers", "converged"):
         np.testing.assert_array_equal(getattr(res, f).numpy(), np.asarray(getattr(ref, f)), err_msg=f)
-    assert calls["propose"] == calls["decide"] == calls["error"] > 0
+    # one lm_inner call per pass of the batched loop (as many as the
+    # longest stream's iterations), no split trial
+    assert calls["inner"] == int(res.iterations.max()) > 0 and calls["inner_trials"] > 0
+    assert calls["propose"] == calls["decide"] == calls["error"] == 0
 
 
 def test_wrappers_take_the_plain_versions_on_cpu(monkeypatch):

@@ -161,21 +161,29 @@ def test_align_lm_loops_read_only_predicates(arith, optimizer, monkeypatch):
 
 @pytest.mark.parametrize("optimizer", ["lm", "gn"])
 def test_card_trials_reach_the_plain_versions_only_through_the_wrappers(optimizer, monkeypatch):
-    """On the card's path a lambda trial (and GN's step) calls the
-    wrappers ``gicp.lm_propose`` / ``lm_decide``, which launch the kernels
-    for CUDA tensors; here on CPU tensors they take the plain versions.
-    A trial that called ``lm_*_plain`` itself would bypass the kernels on
-    the card: it fails here, and so does a host read in the plain versions."""
+    """On the card's path an LM iteration's lambda loop calls the wrapper
+    ``gicp.lm_inner`` once (its kernel runs the whole loop) and GN's step
+    the wrapper ``gicp.lm_propose``: the wrappers launch the kernels for
+    CUDA tensors; here on CPU tensors they take the plain versions. A loop
+    or step that called ``lm_*_plain`` itself would bypass the kernels on
+    the card: it fails here, and so does a host read in the plain
+    versions. ``lm_inner_plain`` runs its trials through
+    ``lm_propose_plain`` / ``lm_decide_plain``, the split trial's plain
+    versions."""
     src, mask, covs_s, tgt, tgt_m, covs_t = _pair(600, seed=3)
     monkeypatch.setattr(gicp, "arithmetic", lambda dev: gicp.TORCH)
     wrapped = collections.Counter()
-    for name in ("lm_propose", "lm_decide"):
-        plain, wrapper = getattr(gicp, f"{name}_plain"), getattr(gicp, name)
+    callers = {"lm_propose": (gicp.lm_propose, gicp.lm_inner_plain),
+               "lm_decide": (gicp.lm_decide, gicp.lm_inner_plain), "lm_inner": (gicp.lm_inner,)}
+    for name, allowed in callers.items():
+        plain = getattr(gicp, f"{name}_plain")
+        codes = {f.__code__: f.__name__ for f in allowed}
 
-        def guarded(*a, _plain=plain, _wrapper=wrapper, _name=name, **k):
-            if sys._getframe(1).f_code is not _wrapper.__code__:
+        def guarded(*a, _plain=plain, _codes=codes, _name=name, **k):
+            caller = _codes.get(sys._getframe(1).f_code)
+            if caller is None:
                 raise AssertionError(f"{_name}_plain reached outside its wrapper")
-            wrapped[_name] += 1
+            wrapped[f"{_name} from {caller}"] += 1
             return _plain(*a, **k)
 
         monkeypatch.setattr(gicp, f"{name}_plain", guarded)
@@ -183,8 +191,18 @@ def test_card_trials_reach_the_plain_versions_only_through_the_wrappers(optimize
     args = [t(a) for a in (src, mask, covs_s, tgt, tgt_m, covs_t)] + [torch.eye(4)]
     with port_accelerator_paths(), no_host_reads():
         res = gicp.align(*args, s)
-    assert int(res.iterations) > 0 and wrapped["lm_propose"] >= int(res.iterations)
-    assert wrapped["lm_decide"] == (wrapped["lm_propose"] if optimizer == "lm" else 0)
+    iterations = int(res.iterations)
+    assert iterations > 0
+    if optimizer == "lm":
+        # one lambda loop per iteration, each one lm_inner call whose plain
+        # version runs lm_max_iterations masked turns; no split trial
+        assert wrapped["lm_inner from lm_inner"] == iterations
+        for name in ("lm_propose", "lm_decide"):
+            assert wrapped[f"{name} from lm_inner_plain"] == iterations * s.lm_max_iterations
+            assert wrapped[f"{name} from {name}"] == 0
+    else:
+        assert wrapped["lm_propose from lm_propose"] == iterations
+        assert sum(wrapped.values()) == iterations
 
 
 def _ccl_inputs(seed, H=16, W=48):

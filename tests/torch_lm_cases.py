@@ -134,3 +134,69 @@ def half_angle_sweep(n=1 << 20):
     b = torch.zeros((n, 6))
     b[:, 0], b[:, 3] = -theta, 1.0
     return torch.eye(6).expand(n, 6, 6).contiguous(), b, torch.zeros(n)
+
+
+# the streams of an lm_inner batch, in turn (``inner_case``)
+INNER_KINDS = ("free", "reject_to_cap", "d_zero", "degenerate", "not_run", "far")
+
+
+def _rot(axis, a):
+    c, s = np.cos(a), np.sin(a)
+    i, j = [(1, 2), (0, 2), (0, 1)][axis]
+    R = np.eye(3)
+    R[i, i], R[i, j], R[j, i], R[j, j] = c, -s, s, c
+    return R
+
+
+def inner_case(B, N, seed=0, kinds=None, lead=True):
+    """The inputs of ``gicp.lm_inner`` for B GICP-like streams of N
+    points: (x0, lam, H, b, src, valid, M, Bv, degenerate, run), torch on
+    the CPU, ``Bv`` a strided view of (B, N, 12) gathered features as the
+    linearization leaves it. Targets are the sources under a pose near
+    the identity plus noise; x0 starts off it; M, H and b come from the
+    card arithmetic's linearization (``gicp._linearize_terms``) at x0.
+    Stream s is of kind ``kinds[s]`` (default: ``INNER_KINDS`` in turn):
+    "free" a plain loop; "far" x0 farther off; "reject_to_cap" with b
+    negated and scaled by 1e4, so every step climbs and the loop runs to lm_max_iterations;
+    "d_zero" with b = 0, a step d = 0; "degenerate" and "not_run" run no
+    trial. ``lead=False`` (B = 1): no batch axis, as ``align`` calls it."""
+    rng = np.random.default_rng(seed)
+    kinds = [INNER_KINDS[s % len(INNER_KINDS)] for s in range(B)] if kinds is None else list(kinds)
+    f = np.float32
+    src = rng.uniform(-20, 20, (B, N, 3)).astype(f)
+    x0 = np.tile(np.eye(4, dtype=f), (B, 1, 1))
+    tgt = np.empty_like(src)
+    for s in range(B):
+        R = _rot(2, 0.03 + 0.01 * s) @ _rot(0, 0.01)
+        tgt[s] = src[s] @ R.T + np.array([0.2, -0.1, 0.05]) + rng.normal(0, 0.02, (N, 3))
+        off = 0.05 if kinds[s] == "far" else 0.01
+        x0[s, :3, :3] = (_rot(1, off) @ _rot(2, -off)).astype(f)
+        x0[s, :3, 3] = rng.uniform(-off, off, 3)
+
+    def covs(k):
+        A = rng.normal(0, 1, (B, k, 3, 3)).astype(f)
+        return (A @ A.transpose(0, 1, 3, 2) * 0.01 + np.eye(3, dtype=f) * 1e-3).astype(f)
+
+    src_covs, cov_B = covs(N), covs(N)
+    valid = rng.random((B, N)) < 0.9
+    feat = torch.from_numpy(np.concatenate([tgt.astype(f), cov_B.reshape(B, N, 9)], axis=-1))
+    Bv = feat[..., :3]
+    x0t, srct = torch.from_numpy(x0), torch.from_numpy(src)
+    vf = torch.from_numpy(valid).float()
+    src_t = gicp._transform_points(x0t, srct)
+    M, _, H, b = gicp._linearize_terms(src_t, vf, x0t[:, :3, :3], torch.from_numpy(cov_B),
+                                       torch.from_numpy(src_covs), Bv)
+    kind = np.array(kinds)
+    # a climbing step large enough that lambda's growth (nu doubles on
+    # each reject) leaves it above the convergence bar for 10 trials
+    b = torch.where(torch.from_numpy(kind == "reject_to_cap")[:, None], b * -1e4, b)
+    b = torch.where(torch.from_numpy(kind == "d_zero")[:, None], 0.0, b)
+    lam = torch.diagonal(H, dim1=-2, dim2=-1).abs().amax(-1) * 1e-9
+    degenerate = torch.from_numpy(kind == "degenerate")
+    run = torch.from_numpy(kind != "not_run")
+    out = [x0t, lam, H.contiguous(), b.contiguous(), srct, torch.from_numpy(valid), M.contiguous(), Bv,
+           degenerate, run]
+    if not lead:
+        assert B == 1
+        out = [x[0] for x in out]
+    return out

@@ -264,7 +264,7 @@ def main(argv=None) -> int:
                                   if e.name in ("cudaLaunchKernel", "cudaGraphLaunch", "cudaMemcpyAsync"))
         own_us = {k: sum(t for n, t in by_name.items() if k in n)
                   for k in ("nn1_kernel", "knn_classes_kernel", "jv_solve_kernel", "plane_reg_kernel",
-                            "set_cond_kernel", "lm_propose_kernel", "lm_decide_kernel")}
+                            "set_cond_kernel", "lm_propose_kernel", "lm_decide_kernel", "lm_inner_kernel")}
         report[kind] = dict(
             wall_ms_per_scan=plain_ms[kind], wall_ms_per_scan_runs=plain_runs[kind],
             # the hand-written kernels' device time and share of busy time
