@@ -46,8 +46,16 @@ Phases, in order; any failure exits non-zero and prints no result:
    ``col_of_row``. ``regularize_plane``
    against ``regularize_plane_plain`` on the card and on the host, on the
    bench scan's window covariances, collinear, denormal-sized and FMA-tie
-   rows; pass: every finite row bit-equal, one launch per call. Each
-   prints device ms, call ms, plain ms and its bound. The capture
+   rows; pass: every finite row bit-equal, one launch per call. The
+   window path whole, ``window_plane_cov`` (``csrc/plane_reg.cu``
+   ``ddlo_window_plane_cov``), against ``window_plane_covariances_plain``
+   on the card: the bench scan (16,384 rows) at k = 10 and 20, a keyframe
+   cloud of 8,192, the CLI's 65,536, 15,607 rows (no multiple of 128), a
+   whole block of sentinels and a cloud whose k-th and (k+1)-th distances
+   tie; pass: every row bit-equal, one launch and two device operations
+   (the kernel and its count add) per call; ``torch.topk`` of the same
+   distances timed beside it. Each prints device ms, call ms, plain ms
+   and its bound. The capture
    driver's ``set_cond`` (``csrc/graph_cond.cu``): a nested WHILE loop and
    an IF/ELSE branch captured into a graph and replayed on four inputs
    (0 to 27 inner turns), each replay without any synchronization,
@@ -93,9 +101,12 @@ Phases, in order; any failure exits non-zero and prints no result:
    (``tests/golden/torch_port_ddlo_steady_jaxcpu.npz``), keyframe flags
    equal, every S2M converged, total valid detections within 10 % of the
    JAX total; one ``jv_solve`` launch per ``tracker.update`` and no host
-   read of the JV solve (``hungarian.HOST_READS``), one
-   ``regularize_plane`` launch per ``plane_covariances`` call (the same
-   launch checks in phases 6, 9, 11, 15 and 16); on the graph run and on
+   read of the JV solve (``hungarian.HOST_READS``), one covariance kernel
+   per ``plane_covariances`` call, ``window_plane_cov`` (the window path)
+   or ``regularize_plane`` (the exact path), and on the bench
+   configuration's window path no ``regularize_plane`` (the same launch
+   checks in phases 6, 9, 11, 15 and 16; phase 16's exact legs no
+   ``window_plane_cov``); on the graph run and on
    the eager one, one ``lm_inner`` launch per lambda loop (the eager
    run's ``gicp.TORCH.lm_inner`` calls), no ``lm_propose`` or
    ``lm_decide`` launch and no error re-evaluation, and no eager
@@ -229,7 +240,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    the phase); every replay after the capture under
    ``torch.cuda.set_sync_debug_mode("error")``; one ``cudaGraphLaunch``
    per step (profiler) with ``nn1_sparse`` (3 a scan), ``jv_solve``,
-   ``regularize_plane``, ``set_cond`` and ``lm_inner`` running inside it
+   ``window_plane_cov`` (and no ``regularize_plane``), ``set_cond`` and
+   ``lm_inner`` running inside it
    (and no split trial), on the device counts and, in a process that has
    captured no other graph (this check runs right after phase 2), by
    the profiler's names: once phases 4-12 have run in the process, the
@@ -267,8 +279,9 @@ plain version and to 8 single calls, every row.
 The line before the last is the kernel table as JSON (``nn1_sparse``'s
 launches summed over phases 4, 5, 9, 10, 11, 12, 14, 15 and 16;
 ``nn1_sparse_batched``'s from phases 13 and 15; ``knn_classes``' from
-phases 7, 15 and 16, phase 15's summed over both ranks; ``jv_solve``'s and
-``regularize_plane``'s from phases 5, 6, 9, 11, 15 and 16; ``set_cond``'s
+phases 7, 15 and 16, phase 15's summed over both ranks; ``jv_solve``'s,
+``regularize_plane``'s and ``window_plane_cov``'s from phases 5, 6, 9,
+11, 15 and 16; ``set_cond``'s
 from phase 17's graph run; ``lm_inner``'s from every phase that counts
 with ``main_path_counts`` and phase 13; ``lm_propose``'s and
 ``lm_decide``'s from those and phase 15's ranks); the last line
@@ -327,6 +340,9 @@ KERNELS = {
                      replaces="dynamic_direct_lidar_odometry_tpu/ops/hungarian.py:23"),
     "regularize_plane": dict(source=f"{PKG}/csrc/plane_reg.cu",
                              replaces="dynamic_direct_lidar_odometry_tpu/ops/covariance.py:213"),
+    # the window path whole: _window_self_covariances, regularize_plane, the mask
+    "window_plane_cov": dict(source=f"{PKG}/csrc/plane_reg.cu",
+                             replaces="dynamic_direct_lidar_odometry_tpu/ops/covariance.py:89"),
     # the capture driver's helper: the device-side test of a loop or branch
     # (the JAX package's lax.while_loop / lax.cond, e.g. the LM loop)
     "set_cond": dict(source=f"{PKG}/csrc/graph_cond.cu",
@@ -354,9 +370,9 @@ FP64_ISSUE_PER_S = 34e12 / 2
 # IEEE operations per matrix in csrc/plane_reg.cu, counted from the code
 # (a division or root as one; the flush, the selections and the f32/f64
 # conversions are not counted; atanf's argument reduction at its longest,
-# four): f32 add/sub/mul/fma/div; f64 add/mul/div/sqrt (cosf's range
-# reduction and polynomials, 27; three roots; four quotients)
-PLANE_F32_OPS, PLANE_F64_OPS = 116, 34
+# four): f32 add/sub/mul/fma/div/sqrt (three roots and four quotients
+# among them); f64 add/mul (cosf's range reduction and polynomials)
+PLANE_F32_OPS, PLANE_F64_OPS = 123, 27
 # f32 operations per stream in csrc/lm_trial.cu, counted from the code
 # (a division, root or sign flip as one, the selections not counted):
 # the solve 213 (LDLT 141, substitutions 66, the negated b 6), se3_exp 52
@@ -396,6 +412,9 @@ def lm_inner_bytes(N: int, active: int, streams: int) -> int:
     return active * (61 * N + 4 * (21 + 6 + 1 + 16)) + streams * (2 + 4 * (2 + 16 + 16) + 4 + 4)
 
 
+# the kernels every covariance call and tracker update launch on the card,
+# counted per phase (phases 5, 6, 9, 11, 15 and 16)
+CARD_KERNELS = ("jv_solve", "regularize_plane", "window_plane_cov")
 # launches of the lambda loop's kernels on the main path, by kernel, summed
 # over every block that main_path_counts (and phases 13 and 15) counted
 PATH_LAUNCHES = collections.Counter()
@@ -619,6 +638,7 @@ def stress_inputs(query, s2m_target):
 PTXAS_NAMES = {"nn1_kernelILb0": "nn1_sparse", "nn1_kernelILb1": "nn1_dense",
                "knn_classes_kernelILb0": "knn_classes", "knn_classes_kernelILb1": "knn_classes_sparse",
                "jv_solve_kernel": "jv_solve", "plane_reg_kernel": "regularize_plane",
+               "window_cov_kernel": "window_plane_cov",
                "set_cond_kernel": "set_cond", "lm_propose_kernel": "lm_propose",
                "lm_decide_kernel": "lm_decide", "lm_inner_kernel": "lm_inner"}
 
@@ -655,6 +675,7 @@ KERNEL_NAMES = {"nn1_sparse": "nn1_kernel<false>", "nn1_dense": "nn1_kernel<true
                 "knn_classes": "knn_classes_kernel<false>",
                 "knn_classes_sparse": "knn_classes_kernel<true>",
                 "jv_solve": "jv_solve_kernel", "regularize_plane": "plane_reg_kernel",
+                "window_plane_cov": "window_cov_kernel",
                 "lm_propose": "lm_propose_kernel", "lm_decide": "lm_decide_kernel",
                 "lm_inner": "lm_inner_kernel"}
 
@@ -872,6 +893,90 @@ def check_regularize(query, k):
           f"regularize_plane: the kernel differs from its plain version on "
           f"{rec['rows_not_bit_equal_card_plain']} rows (card) / {rec['rows_not_bit_equal_host']} (host)")
     return rec
+
+
+def window_cov_cases(cfg, query, s2m_t, odd_q, k):
+    """(name, points, mask, k) for ``ddlo_window_plane_cov``: the bench
+    scan (16,384 rows) at the config's k and at 20, a keyframe cloud of
+    8,192 (the scan voxelized as ``update_keyframes`` stores it), the CLI
+    configuration's 65,536 (the phase's submap), 15,607 rows (no multiple
+    of 128, every 13th a sentinel), a whole block of sentinels inside the
+    scan, and its real points three times each (the k-th and (k+1)-th
+    distances tie exactly)."""
+    import torch
+
+    from dynamic_direct_lidar_odometry_tpu_torch.ops import filters
+
+    def real(p):
+        return torch.all(p < 5.0e5, dim=1)
+
+    kp, km = filters.voxel_downsample(query, real(query), cfg.preprocessing.voxel_submap.res, 8192)
+    blank = query.clone()
+    blank[5 * 128:6 * 128] = 1.0e6
+    ties = query[real(query)].repeat_interleave(3, dim=0)
+    cases = [
+        (f"bench_16384_k{k}", query, k),
+        ("bench_16384_k20", query, 20),
+        ("keyframe_8192", kp, k),
+        ("cli_65536", s2m_t, k),
+        ("nonmultiple_sentinels", odd_q, k),
+        ("sentinel_block", blank, k),
+        ("ties", ties, k),
+    ]
+    return [(name, p.contiguous(), km if name == "keyframe_8192" else real(p), kk) for name, p, kk in cases]
+
+
+def check_window_cov(cases):
+    """``covariance.window_plane_covariances`` (the kernel) against
+    ``window_plane_covariances_plain`` on the card, from the same points:
+    every row bit-equal, one launch per call. Each case prints device ms
+    (the kernel and its count add), call ms, plain ms, ``torch.topk`` of
+    the same distances alone (the plain version's selection) and its
+    bound: 8 FP32 operations a (live row, candidate) pair against 49
+    bytes a row (points, mask and output once)."""
+    import torch
+
+    from dynamic_direct_lidar_odometry_tpu_torch.ops import covariance, nn_cuda
+
+    recs = []
+    for name, p, m, k in cases:
+        before = nn_cuda.LAUNCHES["window_plane_cov"]
+        kern = covariance.window_plane_covariances(p, m, k)
+        torch.cuda.synchronize()
+        launched = nn_cuda.LAUNCHES["window_plane_cov"] - before
+        kern = kern.cpu().numpy()
+        plain = covariance.window_plane_covariances_plain(p, m, k).cpu().numpy()
+        real = np.isfinite(plain).reshape(len(plain), -1).all(axis=1)
+        off = _rows_not_bit_equal(kern, plain, np.ones(len(plain), bool))
+        n, live = p.shape[0], int(m.sum())
+        # a masked row is the identity whatever its window: only live rows
+        # need their 384 pairs
+        pairs = live * 3 * covariance.WINDOW_BLOCK
+        b, by = bound_ms(pairs, 49 * n)
+        call = lambda: covariance.window_plane_covariances(p, m, k)  # noqa: E731
+        dev = device_times(call, KERNEL_NAMES["window_plane_cov"])
+        call_ms = cuda_ms(call)
+        timer = "profiler"
+        if dev["ms"] is None:
+            dev["ms"], timer = call_ms, "events"
+        d2 = covariance._window_d2(p)[1]
+        rec = dict(
+            kernel="window_plane_cov", case=name, N=n, k=k, rows_finite=int(real.sum()),
+            live_rows=live, rows_not_bit_equal=off,
+            max_abs_err=float(np.abs(np.nan_to_num(kern - plain)).max()), launches_per_call=launched,
+            timer=timer, call_ms=call_ms, plain_ms=cuda_ms(lambda: covariance.window_plane_covariances_plain(p, m, k),
+                                                           reps=3),
+            topk_ms=cuda_ms(lambda: torch.topk(d2, k, dim=-1, largest=False, sorted=True), reps=5),
+            bound_ms=b, bound_by=by, pairs=pairs, **dev,
+        )
+        del d2
+        print("kernel check " + json.dumps(rec), flush=True)
+        check(launched == 1, f"window_plane_cov {name}: {launched} launches for one call")
+        check(off == 0, f"window_plane_cov {name}: the kernel differs from its plain version on {off} rows")
+        check(rec["device_ops_per_call"] in (2, "not measured"),
+              f"window_plane_cov {name}: {rec['device_ops_per_call']} device operations a call")
+        recs.append(rec)
+    return recs
 
 
 def jv_cases(device):
@@ -1330,11 +1435,15 @@ def check_trial_launches(tag, launches, rec):
     return got
 
 
-def check_card_kernels(tag, launches, tracker_updates, covariance_calls, host_reads):
+def check_card_kernels(tag, launches, tracker_updates, covariance_calls, host_reads, window=None):
     """The launch checks of a phase on the main path: one ``jv_solve`` per
-    ``tracker.update`` and no host read of the JV solve, one
-    ``regularize_plane`` per ``plane_covariances`` call."""
+    ``tracker.update`` and no host read of the JV solve; one covariance
+    kernel per ``plane_covariances`` call, ``window_plane_cov`` (the window
+    path whole) or ``regularize_plane`` (the exact path's regularization).
+    ``window``: True where every call takes the window path (no
+    ``regularize_plane``), False where none does."""
     rec = dict(jv_solve=launches.get("jv_solve", 0), tracker_updates=tracker_updates,
+               window_plane_cov=launches.get("window_plane_cov", 0),
                regularize_plane=launches.get("regularize_plane", 0), covariance_calls=covariance_calls,
                jv_host_reads=host_reads)
     print(f"{tag} card kernels " + json.dumps(rec), flush=True)
@@ -1342,14 +1451,17 @@ def check_card_kernels(tag, launches, tracker_updates, covariance_calls, host_re
     check(tracker_updates > 0, f"{tag}: no tracker update ran")
     check(rec["jv_solve"] == tracker_updates,
           f"{tag}: jv_solve launched {rec['jv_solve']} times for {tracker_updates} tracker updates")
-    check(rec["regularize_plane"] == covariance_calls,
-          f"{tag}: regularize_plane launched {rec['regularize_plane']} times for {covariance_calls} "
-          "covariance calls")
+    check(rec["window_plane_cov"] + rec["regularize_plane"] == covariance_calls,
+          f"{tag}: window_plane_cov / regularize_plane launched {rec['window_plane_cov']} / "
+          f"{rec['regularize_plane']} times for {covariance_calls} covariance calls")
+    if window is not None:
+        other = "regularize_plane" if window else "window_plane_cov"
+        check(rec[other] == 0, f"{tag}: {other} launched {rec[other]} times")
     return rec
 
 
 @contextlib.contextmanager
-def main_path_counts(tag=None):
+def main_path_counts(tag=None, window=None):
     """The main path's kernel launches (by the wrappers' names), tracker
     updates and covariance calls over the block, counted ON THE DEVICE
     (``utils.profiling.device_counts``): the block's steps are graph
@@ -1357,7 +1469,7 @@ def main_path_counts(tag=None):
     wrappers' host counts (``nn_cuda.LAUNCHES``) advance only at capture.
     The counts start at 0 on entry; a graph captured in the block leaves
     its eager warm-up uncounted, so only the replays count. With ``tag``,
-    :func:`check_card_kernels` holds them. Yields a dict filled on exit:
+    :func:`check_card_kernels` holds them (``window`` as it takes it). Yields a dict filled on exit:
     launches by kernel name, ``tracker_updates``, ``covariance_calls``
     and ``ccl_sweeps``."""
     from dynamic_direct_lidar_odometry_tpu_torch.ops import hungarian
@@ -1372,7 +1484,7 @@ def main_path_counts(tag=None):
     PATH_LAUNCHES.update({k: out[k] for k in ("lm_inner", "lm_propose", "lm_decide")})
     if tag is not None:
         check_card_kernels(tag, out, out["tracker_updates"], out["covariance_calls"],
-                           sum(hungarian.HOST_READS.values()))
+                           sum(hungarian.HOST_READS.values()), window)
 
 
 def check_dense(name, query, target):
@@ -1632,7 +1744,7 @@ def replay_phase(cfg, seq, ref, card):
     sub = sub_sequence(seq, n)
     with tempfile.TemporaryDirectory() as out:
         with recorded(runner.mapper, ("add_keyframe", "remove_boxes", "snapshot")) as calls, \
-                main_path_counts("replay") as card_launches:
+                main_path_counts("replay", window=True) as card_launches:
             res = runner.replay(cfg, sub, out_dir=out, evaluate=True, checkpoint_every=8,
                                 save_every=8, export_clouds_every=8)
         launches = card_launches["nn1_sparse"]
@@ -2123,7 +2235,8 @@ def profile_steps(cfg, step, st, pts, msk, ts, k0=1, k=8) -> tuple:
         device_busy_ms_per_scan=busy / 1e3 / k,
         device_ops_per_scan=ops / k, host_launch_calls_per_scan={a: v / k for a, v in api.items()},
         nn1_sparse_per_scan=per_scan("nn1_kernel<false>"), jv_solve_per_scan=per_scan("jv_solve_kernel"),
-        plane_reg_per_scan=per_scan("plane_reg_kernel"), set_cond_per_scan=len(set_us) / k,
+        plane_reg_per_scan=per_scan("plane_reg_kernel"), window_cov_per_scan=per_scan("window_cov_kernel"),
+        set_cond_per_scan=len(set_us) / k,
         set_cond_us_mean=statistics.mean(set_us) if set_us else None,
     ), {nm: v / k for nm, v in names.items()}
 
@@ -2131,8 +2244,9 @@ def profile_steps(cfg, step, st, pts, msk, ts, k0=1, k=8) -> tuple:
 def graph_names_phase(cfg, seq) -> dict:
     """Phase 17's profiler check, in a process that has captured no other
     graph: one ``cudaGraphLaunch`` per ``pipeline.step`` and, by the
-    profiler's names, ``nn1_sparse``, ``jv_solve``, ``regularize_plane``
-    and ``set_cond`` inside the replays of scans 2-9. Returns the device
+    profiler's names, ``nn1_sparse``, ``jv_solve``, ``window_plane_cov``
+    (and no ``regularize_plane``) and ``set_cond`` inside the replays of
+    scans 2-9. Returns the device
     operations per scan by name, which the later graph phase compares
     with its own."""
     import torch
@@ -2150,7 +2264,8 @@ def graph_names_phase(cfg, seq) -> dict:
     pipeline.clear_graphs()  # later phases capture their own
     print("graph names " + json.dumps(dict(profile=prof, device_ops_per_scan_by_name=names)), flush=True)
     check(prof["nn1_sparse_per_scan"] >= 3 and prof["jv_solve_per_scan"] >= 1
-          and prof["plane_reg_per_scan"] >= 1 and prof["set_cond_per_scan"] >= 1,
+          and prof["window_cov_per_scan"] >= 1 and prof["plane_reg_per_scan"] == 0
+          and prof["set_cond_per_scan"] >= 1,
           f"the kernels did not run inside the replays: {prof}")
     check(prof["host_launch_calls_per_scan"].get("cudaGraphLaunch", 0) == 1,
           f"a graph step is not one graph launch: {prof['host_launch_calls_per_scan']}")
@@ -2195,7 +2310,7 @@ def graph_phase(cfg, seq, card, fresh_names=None):
     # graph is captured afresh (its capture seconds and pool are reported)
     pipeline.clear_graphs()
     reads0 = (sum(control.PREDICATE_READS.values()), segmentation.SWEEPS["host_reads"])
-    with main_path_counts("graph") as counted:
+    with main_path_counts("graph", window=True) as counted:
         g_outs, g_states, g_ms = run(pipeline.step, guard=True)
         stats = pipeline.graph_stats()
     e_outs, e_states, e_ms = run(pipeline.step_eager)
@@ -2292,7 +2407,7 @@ def graph_phase(cfg, seq, card, fresh_names=None):
     check(not gated, f"graph step differs from step_eager in {gated}")
     # the kernels inside the replays, on the device counts (the profiler's
     # names are checked before any other capture: graph_names_phase)
-    check(counted["nn1_sparse"] >= 3 * n and counted["jv_solve"] >= n and counted["regularize_plane"] >= n
+    check(counted["nn1_sparse"] >= 3 * n and counted["jv_solve"] >= n and counted["window_plane_cov"] >= n
           and counted["set_cond"] >= n and counted["lm_inner"] >= n
           and counted["lm_propose"] == counted["lm_decide"] == 0,
           f"the kernels did not run inside the replays: {counted}")
@@ -2478,7 +2593,7 @@ def replay_batch_phase(cfg, seq, card):
     st0 = sharding.batched_init_state(cfg, p[:, 0], m[:, 0], t[:, 0], device=dev)
     pd, md, td = on_card(p), on_card(m), on_card(t)
     batched, st = [], st0
-    with main_path_counts("replay_batch") as counted:
+    with main_path_counts("replay_batch", window=True) as counted:
         for k in range(1, STREAM_SCANS):
             with sync_free():
                 st, out = step(st, pd[:, k], md[:, k], td[:, k])
@@ -2762,8 +2877,9 @@ def point_parallel_phase(problems, seq, ref, card):
                   f"scan {i + 1}: knn_classes not launched for the point-parallel covariances")
             check(r["jv_host_reads"] == 0 and r["tracker_updates"] > 0
                   and r["launches"].get("jv_solve", 0) == r["tracker_updates"]
-                  and r["launches"].get("regularize_plane", 0) == r["covariance_calls"],
-                  f"scan {i + 1}: jv_solve / regularize_plane launched {r['launches']} for "
+                  and r["launches"].get("regularize_plane", 0) + r["launches"].get("window_plane_cov", 0)
+                  == r["covariance_calls"],
+                  f"scan {i + 1}: jv_solve / regularize_plane / window_plane_cov launched {r['launches']} for "
                   f"{r['tracker_updates']} tracker updates and {r['covariance_calls']} covariance calls "
                   f"({r['jv_host_reads']} JV host reads)")
     total = {}
@@ -2807,9 +2923,9 @@ def accuracy_phase(seq, card, out_path=None):
     check(rep["pass"], f"accuracy gates failed: {[g for g in rep['gates'] if not g['ok']]}")
     for name, v in legs.items():  # in the launch gate too; stated here
         check_card_kernels(f"accuracy {name}", v["launches"], v["tracker_updates"], v["covariance_calls"],
-                           v["jv_host_reads"])
+                           v["jv_host_reads"], window=acc.LEGS[name]["path"] == "sparse")
     return {k: sum(v["launches"].get(k, 0) for v in legs.values())
-            for k in ("nn1_sparse", "knn_classes", "jv_solve", "regularize_plane")}
+            for k in ("nn1_sparse", "knn_classes", "jv_solve", "regularize_plane", "window_plane_cov")}
 
 
 def main(argv=None) -> int:
@@ -2940,6 +3056,7 @@ def main(argv=None) -> int:
         for r in recs:
             records.setdefault(r["kernel"], []).append(r)
         records["regularize_plane"] = [check_regularize(query, k)]
+        records["window_plane_cov"] = check_window_cov(window_cov_cases(cfg, query, s2m_t, odd_q, k))
         records["jv_solve"] = [check_jv(jv_cases(dev), "random_ties_big_nan_N32_64_128_256",
                                         also_time=("uniform_N64_all", "uniform_N128_all", "uniform_N256_all"))]
         records["set_cond"] = [check_set_cond(dev)]
@@ -2950,7 +3067,7 @@ def main(argv=None) -> int:
         records["lm_inner"] = [check_lm_inner(lm_inner_cases(dev), "synthetic_routes_and_scenarios", 4)]
 
     sparse_launches = {}  # nn1_sparse per phase that runs it, each read right after it
-    card_launches = {}  # jv_solve and regularize_plane per phase, each read right after it
+    card_launches = {}  # CARD_KERNELS per phase, each read right after it
     if 4 in phases:
         # ---- 4. plain DLO ----
         print(f"at {time.perf_counter() - t_start:.1f} s: phase 4", flush=True)
@@ -2970,7 +3087,7 @@ def main(argv=None) -> int:
         # ---- 5. full DDLO, default backends ----
         print(f"at {time.perf_counter() - t_start:.1f} s: phase 5", flush=True)
         segmentation.SWEEPS.clear()
-        with main_path_counts("ddlo") as card_launches[5]:
+        with main_path_counts("ddlo", window=True) as card_launches[5]:
             poses, steps = run_slice(cfg, seq.points[:n], seq.mask[:n], seq.stamps[:n], dev,
                                      timed=True, keep=keep)
         sparse_launches[5] = card_launches[5]["nn1_sparse"]
@@ -3105,7 +3222,7 @@ def main(argv=None) -> int:
         print(f"at {time.perf_counter() - t_start:.1f} s: phase 15", flush=True)
         pt_launches = point_parallel_phase(problems, seq, ref_ddlo, card)
         sparse_launches[15] = pt_launches.get("nn1_sparse", 0)
-        card_launches[15] = {k: pt_launches.get(k, 0) for k in ("jv_solve", "regularize_plane")}
+        card_launches[15] = {k: pt_launches.get(k, 0) for k in CARD_KERNELS}
         for name in ("nn1_sparse_batched", "knn_classes"):
             launches[name] = launches.get(name, 0) + pt_launches.get(name, 0)
         PATH_LAUNCHES.update({k: pt_launches.get(k, 0) for k in ("lm_propose", "lm_decide")})
@@ -3115,7 +3232,7 @@ def main(argv=None) -> int:
         print(f"at {time.perf_counter() - t_start:.1f} s: phase 16", flush=True)
         acc_launches = accuracy_phase(seq, card, args.accuracy_out)
         sparse_launches[16] = acc_launches["nn1_sparse"]
-        card_launches[16] = {k: acc_launches[k] for k in ("jv_solve", "regularize_plane")}
+        card_launches[16] = {k: acc_launches[k] for k in CARD_KERNELS}
         launches["knn_classes"] = launches.get("knn_classes", 0) + acc_launches["knn_classes"]
     if 17 in phases:
         # ---- 17. the step and the chunk as captured graphs ----
@@ -3123,10 +3240,11 @@ def main(argv=None) -> int:
         launches["set_cond"] = graph_phase(cfg, seq, card, fresh_names)["launches"]["set_cond"]
     launches["nn1_sparse"] = sum(sparse_launches.values())
     launches.update({k: PATH_LAUNCHES[k] for k in ("lm_inner", "lm_propose", "lm_decide")})
-    for k in ("jv_solve", "regularize_plane"):
+    for k in CARD_KERNELS:
         launches[k] = sum(v.get(k, 0) for v in card_launches.values())
     print(f"nn1_sparse launches by phase: {json.dumps(sparse_launches)}", flush=True)
-    print(f"jv_solve / regularize_plane launches by phase: {json.dumps(card_launches)}", flush=True)
+    print(f"jv_solve / regularize_plane / window_plane_cov launches by phase: {json.dumps(card_launches)}",
+          flush=True)
     print(f"wall: {time.perf_counter() - t_start:.1f} s", flush=True)
 
     if not full:
@@ -3145,6 +3263,7 @@ def main(argv=None) -> int:
             plain_ms=main_case["plain_ms"],
             bound_ms=main_case["bound_ms"], bound_by=main_case["bound_by"],
             library_ms=None, cdist_ms=main_case.get("cdist_ms"), eigh_ms=main_case.get("eigh_ms"),
+            topk_ms=main_case.get("topk_ms"),
             case=main_case["case"],
             **ptxas.get("nn1_sparse" if name == "nn1_sparse_batched" else name, {}),
         ))

@@ -1,6 +1,13 @@
 """Per-point GICP covariances with PLANE regularization (counterpart of
 ``ops/covariance.py``): the exact k-NN path, the Morton-block window
-path, and the closed-form smallest-eigenvector regularization."""
+path, and the closed-form smallest-eigenvector regularization.
+
+Two hand-written kernels, both in ``csrc/plane_reg.cu``, each with its
+plain version here: on the card the window path is one
+``ddlo_window_plane_cov`` launch (:func:`window_plane_covariances`;
+plain :func:`window_plane_covariances_plain`), and the exact path's
+regularization one ``ddlo_plane_reg`` launch (:func:`regularize_plane`;
+plain :func:`regularize_plane_plain`)."""
 
 from __future__ import annotations
 
@@ -27,8 +34,12 @@ def plane_covariances(
 
     ``morton_ordered``: the caller promises the rows are Morton sorted
     (a ``filters.voxel_downsample`` output). On CUDA that selects the
-    window path, as on the JAX package's TPU; on CPU the exact k-NN
-    path runs, as on the JAX package's CPU.
+    window path, as on the JAX package's TPU: :func:`window_plane_covariances`,
+    one ``csrc/plane_reg.cu`` launch for the window, the selection, the
+    moments, the regularization and the mask. Otherwise (on CPU, as on
+    the JAX package's CPU; ``neighbor_points``; ``DDLO_KNN_IMPL=exact``
+    or ``pallas``) the exact k-NN path runs: ``knn_best``, the
+    neighborhoods' covariances, then :func:`regularize_plane`.
     """
     profiling.count(points.device, "covariance_calls")  # on the device: a replay counts
     tgt = points if neighbor_points is None else neighbor_points
@@ -39,15 +50,12 @@ def plane_covariances(
         and device.on_accelerator(points)
         and impl in ("auto", "window")
     ):
-        cov = _window_self_covariances(points, k)
-    else:
-        idx, _ = knn_ops.knn_best(points, tgt, k)
-        # clamp like a JAX gather: a sentinel query's neighbors may be
-        # padded target rows (its covariance is masked to identity)
-        neigh = tgt[idx.long().clamp_max(tgt.shape[0] - 1)]  # (N, k, 3)
-        cov = neighborhood_covariance(neigh)
-
-    cov_reg = regularize_plane(cov)
+        return window_plane_covariances(points, mask, k)
+    idx, _ = knn_ops.knn_best(points, tgt, k)
+    # clamp like a JAX gather: a sentinel query's neighbors may be
+    # padded target rows (its covariance is masked to identity)
+    neigh = tgt[idx.long().clamp_max(tgt.shape[0] - 1)]  # (N, k, 3)
+    cov_reg = regularize_plane(neighborhood_covariance(neigh))
     eye = torch.eye(3, dtype=points.dtype, device=points.device)
     return torch.where(mask[:, None, None], cov_reg, eye)
 
@@ -71,8 +79,37 @@ def neighborhood_covariance(neigh: torch.Tensor) -> torch.Tensor:
     return acc * (1.0 / k)
 
 
+WINDOW_BLOCK = 128  # the window path's Morton block
+_PAD = 3.0e12  # the rows past N
+
+
+def _dot3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a . b`` over a last axis of 3 as XLA's CPU loop rounds it (the
+    JAX package's ``jnp.sum(y * y, -1)`` and HIGHEST ``einsum``):
+    ``fma(a2, b2, fma(a1, b1, a0 b0))``."""
+    return fp.fma32(a[..., 2], b[..., 2], fp.fma32(a[..., 1], b[..., 1], a[..., 0] * b[..., 0]))
+
+
+def _window_d2(points: torch.Tensor, block: int = WINDOW_BLOCK) -> tuple:
+    """The window's anchored candidates ``yc`` (nb, 3B, 3) and their
+    squared distances to the queries ``d2`` (nb, B, 3B), rounded as
+    :func:`_window_self_covariances` says."""
+    N, B = points.shape[0], block
+    pad = (-N) % B
+    p = points
+    if pad:
+        p = torch.cat([p, p.new_full((pad, 3), _PAD)])
+    q = p.reshape(p.shape[0] // B, B, 3)
+    c = torch.cat([torch.roll(q, 1, dims=0), q, torch.roll(q, -1, dims=0)], dim=1)
+    yc = c - q[:, :1, :]  # anchored at each block's row 0
+    cc = _dot3(yc, yc)  # (nb, 3B)
+    yq, qq = yc[:, B:2 * B, None, :], cc[:, B:2 * B, None]
+    cross = _dot3(yq, yc[:, None])
+    return yc, (qq + cc[:, None, :]) - 2.0 * cross
+
+
 def _window_self_covariances(
-    points: torch.Tensor, k: int, block: int = 128
+    points: torch.Tensor, k: int, block: int = WINDOW_BLOCK
 ) -> torch.Tensor:
     """Self-neighborhood covariances over a MORTON-BLOCK candidate set:
     each query takes its k nearest among the rows of its 128-row block
@@ -80,34 +117,79 @@ def _window_self_covariances(
     wrap), with every ``d2 <= k-th smallest`` candidate weighted in (ties
     may push the count past k; normalized by the actual count). All
     block-centered so the f32 ``E[yy] - mm`` never cancels against
-    ``|x|^2``-sized terms."""
-    N = points.shape[0]
-    B = block
-    pad = (-N) % B
-    p = points
-    if pad:
-        p = torch.cat([p, p.new_full((pad, 3), 3.0e12)])
-    nb = p.shape[0] // B
-    q = p.reshape(nb, B, 3)
-    ctr = q[:, 0, :]
-    yq = q - ctr[:, None, :]
-    c = torch.cat([torch.roll(q, 1, dims=0), q, torch.roll(q, -1, dims=0)], dim=1)
-    yc = c - ctr[:, None, :]  # (nb, 3B, 3)
-    qq = torch.sum(yq * yq, dim=-1)  # (nb, B)
-    cc = torch.sum(yc * yc, dim=-1)  # (nb, 3B)
-    cross = torch.matmul(yq, yc.transpose(1, 2))  # (nb, B, 3B)
-    d2 = qq[:, :, None] + cc[:, None, :] - 2.0 * cross
-    rk = torch.topk(d2, k, dim=-1, largest=False, sorted=True).values[..., k - 1]
-    w = (d2 <= rk[..., None]).to(points.dtype)
-    cnt = torch.clamp_min(torch.sum(w, dim=-1), 1.0)  # (nb, B)
-    sum_y = torch.matmul(w, yc)  # (nb, B, 3)
-    yy = (yc[:, :, :, None] * yc[:, :, None, :]).reshape(nb, 3 * B, 9)
-    sum_yy = torch.matmul(w, yy).reshape(nb, B, 3, 3)
-    mean_y = sum_y / cnt[..., None]
-    cov = sum_yy / cnt[..., None, None] - (
-        mean_y[..., :, None] * mean_y[..., None, :]
-    )
+    ``|x|^2``-sized terms.
+
+    Rounded as the JAX package's jitted function rounds on the CPU (XLA,
+    read from its outputs), one eager operation each, so that
+    ``csrc/plane_reg.cu`` ``window_cov_kernel`` can follow it: ``y = p -
+    anchor``; ``|y|^2`` and ``yq . yc`` as XLA's loops (:func:`_dot3`);
+    ``d2 = (|yq|^2 + |yc|^2) - 2 yq . yc``; the k-th smallest ``rk`` by
+    ``torch.topk`` (exact); then the count and the sums of ``y`` and ``y
+    y^T`` over the selected candidates as XLA's dot takes them: 4
+    accumulators by candidate index mod 4, each adding its selected
+    candidates in ascending order from +0 (an unselected one is skipped),
+    then ``(a0 + a1) + (a2 + a3)``; finally ``mean = sum_y / cnt`` and
+    ``fma(-mean_a, mean_b, sum_ab / cnt)``, divided by f32 tensors."""
+    N, B = points.shape[0], block
+    yc, d2 = _window_d2(points, B)
+    nb = yc.shape[0]
+    rk = torch.topk(d2, k, dim=-1, largest=False, sorted=True).values[..., k - 1:k]
+    sel = (d2 <= rk).reshape(nb, B, 3 * B // 4, 4, 1)
+    cnt = torch.clamp_min(sel.sum(dim=(2, 3, 4)).to(points.dtype), 1.0)  # (nb, B), exact
+    y0, y1, y2 = yc.unbind(-1)
+    terms = torch.stack([y0, y1, y2, y0 * y0, y0 * y1, y0 * y2, y1 * y1, y1 * y2, y2 * y2], -1)
+    terms = terms.reshape(nb, 1, 3 * B // 4, 4, 9)
+    acc = torch.zeros(nb, B, 4, 9, dtype=points.dtype, device=points.device)
+    for u in range(3 * B // 4):
+        acc = torch.where(sel[:, :, u], acc + terms[:, :, u], acc)
+    s = (acc[:, :, 0] + acc[:, :, 1]) + (acc[:, :, 2] + acc[:, :, 3])  # (nb, B, 9)
+    mean = s[..., :3] / cnt[..., None]
+    s00, s01, s02, s11, s12, s22 = s[..., 3:].unbind(-1)
+    syy = torch.stack([s00, s01, s02, s01, s11, s12, s02, s12, s22], -1).reshape(nb, B, 3, 3)
+    cov = fp.fma32(-mean[..., :, None], mean[..., None, :], syy / cnt[..., None, None])
     return cov.reshape(nb * B, 3, 3)[:N]
+
+
+def window_plane_covariances(points: torch.Tensor, mask: torch.Tensor, k: int) -> torch.Tensor:
+    """``plane_covariances``' window path: the Morton-window covariances
+    of :func:`_window_self_covariances`, regularized, identity on masked
+    rows. A CUDA tensor launches ``csrc/plane_reg.cu``
+    ``ddlo_window_plane_cov`` (one launch, counted in
+    ``nn_cuda.LAUNCHES["window_plane_cov"]``) or raises; a CPU tensor runs
+    :func:`window_plane_covariances_plain`, the kernel's plain version;
+    any other device raises. Both give the same bits."""
+    if points.is_cuda:
+        return _window_plane_cov_cuda(points, mask, k)
+    if points.device.type != "cpu":
+        raise ValueError(f"window_plane_covariances: no kernel for a tensor on {points.device}")
+    return window_plane_covariances_plain(points, mask, k)
+
+
+def _window_plane_cov_cuda(points: torch.Tensor, mask: torch.Tensor, k: int) -> torch.Tensor:
+    n = points.shape[0]
+    if (points.dtype != torch.float32 or points.dim() != 2 or points.shape[1] != 3
+            or mask.dtype != torch.bool or tuple(mask.shape) != (n,) or mask.device != points.device):
+        raise ValueError(
+            f"window_plane_covariances: expected (N, 3) float32 points and an (N,) bool mask on one "
+            f"device, got {points.dtype} {tuple(points.shape)} and {mask.dtype} {tuple(mask.shape)} "
+            f"on {mask.device}"
+        )
+    if not 1 <= k <= 3 * WINDOW_BLOCK:
+        raise ValueError(f"window_plane_covariances: k = {k} outside 1..{3 * WINDOW_BLOCK}")
+    out = torch.empty((n, 3, 3), dtype=torch.float32, device=points.device)
+    if n:
+        lib = nn_cuda.build()["plane_reg"].lib
+        nn_cuda.run_kernel(lib.ddlo_window_plane_cov, "window_plane_cov",
+                           points.contiguous(), mask.contiguous(), n, k, out)
+    return out
+
+
+def window_plane_covariances_plain(points: torch.Tensor, mask: torch.Tensor, k: int) -> torch.Tensor:
+    """The window kernel's plain version: :func:`_window_self_covariances`,
+    :func:`regularize_plane_plain`, identity on masked rows."""
+    cov = regularize_plane_plain(_window_self_covariances(points, k))
+    eye = torch.eye(3, dtype=points.dtype, device=points.device)
+    return torch.where(mask[:, None, None], cov, eye)
 
 
 # Every function below rounds as the JAX package's jitted

@@ -38,8 +38,11 @@ for B streams at once, :func:`prepare_sparse_targets` /
 :func:`build` builds every library of the port at once, and
 :data:`LAUNCHES` counts every kernel: also the two that the JAX package
 left to XLA, ``jv_solve`` (``csrc/jv_solve.cu``, launched by
-``ops/hungarian.solve``), ``regularize_plane`` (``csrc/plane_reg.cu``,
-``ops/covariance.regularize_plane``) and GICP's lambda loop,
+``ops/hungarian.solve``), the covariances' ``window_plane_cov`` (the
+window path whole: window, selection, moments, regularization, mask)
+and ``regularize_plane`` (the exact path's regularization) (both
+``csrc/plane_reg.cu``, ``ops/covariance.window_plane_covariances`` /
+``regularize_plane``) and GICP's lambda loop,
 ``lm_inner`` (the whole loop) and ``lm_propose`` and ``lm_decide`` (a
 split trial) (``csrc/lm_trial.cu``, ``ops/gicp.lm_inner`` /
 ``lm_propose`` / ``lm_decide``), and ``set_cond``
@@ -181,6 +184,7 @@ def build() -> Dict[str, _cuda_build.Built]:
         ("jv_solve", "ddlo_jv_solve", [P, P, I, P, P]),
         ("jv_solve", "ddlo_jv_shared_max_n", []),
         ("plane_reg", "ddlo_plane_reg", [P, I, P, P]),
+        ("plane_reg", "ddlo_window_plane_cov", [P, P, I, I, P, P]),
         ("graph_cond", "ddlo_set_cond", [P] * 3 + [I] * 4 + [P, I] + [ctypes.c_ulonglong] * 2 + [I] + [P] * 3),
         ("graph_cond", "ddlo_set_cond_blocks", [I, I]),
         ("graph_cond", "ddlo_cond_handle", [P, P]),

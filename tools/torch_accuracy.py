@@ -26,8 +26,9 @@ of ``jax_cpu_window``, ``gpu_exact`` within 1 cm of ``jax_cpu_exact``.
 runs against each other are reported, not gated: they show what the
 window approximation costs apart from the port. Each leg also checks that
 it took its path, from the kernels' launch counts: its NN kernels and, on
-the card, one ``jv_solve`` launch per tracker update and one
-``regularize_plane`` launch per covariance call, with no host read of the
+the card, one ``jv_solve`` launch per tracker update and one covariance
+kernel launch per covariance call (``window_plane_cov`` on the window
+path, ``regularize_plane`` on the exact one), with no host read of the
 JV assignment. Keyframe counts and map
 points are reported beside the JAX runs' and not gated.
 
@@ -164,27 +165,30 @@ def _recorded_steps(pipeline):
         pipeline.step = real
 
 
-# launched on the card at every tracker update and covariance call, by any path
-CARD_KERNELS = ("jv_solve", "regularize_plane")
+# launched on the card at every tracker update (jv_solve) and covariance
+# call (one of the two covariance kernels: the exact path's
+# regularize_plane, the window path's window_plane_cov), by any path
+COVARIANCE_KERNELS = ("regularize_plane", "window_plane_cov")
+CARD_KERNELS = ("jv_solve",) + COVARIANCE_KERNELS
 # every kernel the legs can launch, by its wrapper's name (ops/nn_cuda.py)
 KERNEL_NAMES = ("nn1_sparse", "nn1_dense", "nn1_sparse_batched", "knn_classes", "knn_classes_sparse",
-                "jv_solve", "regularize_plane", "set_cond")
+                "jv_solve", "regularize_plane", "window_plane_cov", "set_cond")
 
 
 def launch_check(path: str, launches: dict, linearizations: int, covariance_calls: int,
                  tracker_updates: int | None = None) -> bool:
     """Did the leg take its path? See :data:`LEGS`. On the card
     (``tracker_updates`` given) ``jv_solve`` launched once per tracker
-    update and ``regularize_plane`` once per covariance call; on the host
-    neither ran."""
+    update and ``window_plane_cov`` or ``regularize_plane`` once per
+    covariance call; on the host none of them ran."""
     # set_cond: a captured graph's loop tests (csrc/graph_cond.cu), not a
     # path's kernel
     got = {k: v for k, v in launches.items() if v and k != "set_cond"}
-    card = dict(zip(CARD_KERNELS, (tracker_updates, covariance_calls)))
     if tracker_updates is None:
-        if set(got) & set(card):
+        if set(got) & set(CARD_KERNELS):
             return False
-    elif any(got.pop(k, 0) != want for k, want in card.items()):
+    elif (got.pop("jv_solve", 0) != tracker_updates
+          or sum(got.pop(k, 0) for k in COVARIANCE_KERNELS) != covariance_calls):
         return False
     if path == "none":
         return not got

@@ -17,8 +17,8 @@ warm-up:
 - the eager step's CCL host reads, and the JV assignment's host reads,
   per scan; each hand-written kernel's launches per scan (its wrapper's
   count in ``nn_cuda.LAUNCHES``), beside the tracker updates (one
-  ``jv_solve`` each) and covariance calls (one ``regularize_plane`` each)
-  per scan;
+  ``jv_solve`` each) and covariance calls (one ``window_plane_cov`` each
+  on the window path, ``regularize_plane`` on the exact one) per scan;
 - from ``torch.profiler`` over the same scans, for the graph and the
   eager step: device-busy time (the union of kernel intervals) against
   the wall time, i.e. the device's idle share, the kernels run, the
@@ -264,7 +264,8 @@ def main(argv=None) -> int:
                                   if e.name in ("cudaLaunchKernel", "cudaGraphLaunch", "cudaMemcpyAsync"))
         own_us = {k: sum(t for n, t in by_name.items() if k in n)
                   for k in ("nn1_kernel", "knn_classes_kernel", "jv_solve_kernel", "plane_reg_kernel",
-                            "set_cond_kernel", "lm_propose_kernel", "lm_decide_kernel", "lm_inner_kernel")}
+                            "window_cov_kernel", "set_cond_kernel", "lm_propose_kernel", "lm_decide_kernel",
+                            "lm_inner_kernel")}
         report[kind] = dict(
             wall_ms_per_scan=plain_ms[kind], wall_ms_per_scan_runs=plain_runs[kind],
             # the hand-written kernels' device time and share of busy time
