@@ -10,9 +10,9 @@ Phases, in order; any failure exits non-zero and prints no result:
 1. Device: a CUDA card is required; prints its name and power limit
    (``nvidia-smi``) and checks that TF32 is off.
 2. Build: compiles ``csrc/nn1_sparse.cu``, ``csrc/knn_classes.cu``,
-   ``csrc/jv_solve.cu``, ``csrc/plane_reg.cu``, ``csrc/graph_cond.cu`` and
-   ``csrc/lm_trial.cu`` with nvcc for sm_90a, one nvcc each, all started
-   together.
+   ``csrc/jv_solve.cu``, ``csrc/plane_reg.cu``, ``csrc/graph_cond.cu``,
+   ``csrc/lm_trial.cu`` and ``csrc/trace.cu`` with nvcc for sm_90a, one
+   nvcc each, all started together.
 3. Every kernel against its plain PyTorch version, on the card, at the
    main paths' shapes, with inputs built from the benchmark sequence:
    sparse 1-NN (S2M 16,384 x 65,536 at r = 2 and 6, S2S 16,384 x 16,384
@@ -89,7 +89,13 @@ Phases, in order; any failure exits non-zero and prints no result:
    ms, call ms, plain ms, its bound (``lm_inner``: the points' bytes
    read once and the trials' operations) and the launch floor (a
    one-element add's device time); ``lm_inner`` its route, trials and
-   the shared-memory route's largest N.
+   the shared-memory route's largest N. The span stamp
+   (``csrc/trace.cu``, ``profiling.mark``): the bench step's graph
+   replayed twice inside ``device_counts`` against the same scans stepped
+   on the CPU (the host clock); pass: every span's ``.n`` and the count
+   of stamps equal, the stage spans within the graph's, a replay with
+   tracing off changing no span count or open time, every timed stamp
+   counted.
 4. Plain DLO (``bench_config(dynamic_detection=False)``) on the first 16
    scans of ``steady_state_sequence(64)`` (rendered afresh, checked
    against the committed checksum) through ``pipeline.init_state`` /
@@ -322,6 +328,10 @@ GRAPH_SCANS, WATCHDOG_SCANS = 16, 7  # phase 17: graph vs eager steps; the watch
 PT, PT_SCANS, PT_TIMEOUT_S = 2, 8, 480  # phase 15: ranks on the one card, scans, each rank's limit
 WARMUP_SCANS = 2
 DENSE_SCANS = 8
+SPAN_SCANS = 4  # phase 3's stamp case: init, the capture's step, two traced replays
+# a stamp's bytes: the gate (1), its own count (read, write), the closed
+# span's open time (read, write), ns and n (read, write each), the new open time
+SPAN_BYTES = 1 + 16 + 16 + 32 + 8
 STATE_ATOL = 1e-4
 PKG = "dynamic_direct_lidar_odometry_tpu_torch"
 KERNELS = {
@@ -354,6 +364,9 @@ KERNELS = {
                        replaces="dynamic_direct_lidar_odometry_tpu/ops/gicp.py:361"),
     "lm_decide": dict(source=f"{PKG}/csrc/lm_trial.cu",
                       replaces="dynamic_direct_lidar_odometry_tpu/ops/gicp.py:359"),
+    # the stage timer on the device: the JAX package times stages on the host
+    "span": dict(source=f"{PKG}/csrc/trace.cu",
+                 replaces="dynamic_direct_lidar_odometry_tpu/utils/profiling.py:104"),
 }
 # the bound: FP32 work at the H100 SXM's non-tensor issue rate (67 TFLOP/s
 # counts an FMA as 2; the function rounds every operation, so none fuses:
@@ -640,7 +653,7 @@ PTXAS_NAMES = {"nn1_kernelILb0": "nn1_sparse", "nn1_kernelILb1": "nn1_dense",
                "jv_solve_kernel": "jv_solve", "plane_reg_kernel": "regularize_plane",
                "window_cov_kernel": "window_plane_cov",
                "set_cond_kernel": "set_cond", "lm_propose_kernel": "lm_propose",
-               "lm_decide_kernel": "lm_decide", "lm_inner_kernel": "lm_inner"}
+               "lm_decide_kernel": "lm_decide", "lm_inner_kernel": "lm_inner", "span_kernel": "span"}
 
 
 def ptxas_report(log: str) -> dict:
@@ -677,7 +690,7 @@ KERNEL_NAMES = {"nn1_sparse": "nn1_kernel<false>", "nn1_dense": "nn1_kernel<true
                 "jv_solve": "jv_solve_kernel", "regularize_plane": "plane_reg_kernel",
                 "window_plane_cov": "window_cov_kernel",
                 "lm_propose": "lm_propose_kernel", "lm_decide": "lm_decide_kernel",
-                "lm_inner": "lm_inner_kernel"}
+                "lm_inner": "lm_inner_kernel", "span": "span_kernel"}
 
 
 def _record(kernel, case, Q, T, err, identical, pairs, nbytes, call, plain_ms, cdist_ms, **extra):
@@ -1481,10 +1494,87 @@ def main_path_counts(tag=None, window=None):
         yield out
     out.update({k: 0 for k in KERNELS}, tracker_updates=0, covariance_calls=0, ccl_sweeps=0)
     out.update(counts)
-    PATH_LAUNCHES.update({k: out[k] for k in ("lm_inner", "lm_propose", "lm_decide")})
+    PATH_LAUNCHES.update({k: out[k] for k in ("lm_inner", "lm_propose", "lm_decide", "span")})
     if tag is not None:
         check_card_kernels(tag, out, out["tracker_updates"], out["covariance_calls"],
                            sum(hungarian.HOST_READS.values()), window)
+
+
+def check_span(cfg, seq, dev):
+    """The stamp (``csrc/trace.cu`` ``ddlo_span``) against its plain
+    version, ``profiling.mark`` on the CPU (the host clock): the bench
+    step's graph replayed inside ``device_counts`` on the card and the
+    same scans stepped on the CPU give every span the same ``.n`` and the
+    same count of stamps (``span``); on the card the stage spans sum to
+    no more than the graph's; with the gate off (after the block) a replay
+    changes no span slot and no open time. Timed: one stamp with tracing
+    on (device, call), its device time off, and the CPU stamp (plain).
+    Each timed stamp is counted on the host and held to ``span``."""
+    import torch
+
+    from dynamic_direct_lidar_odometry_tpu_torch import pipeline
+    from dynamic_direct_lidar_odometry_tpu_torch.utils import profiling
+
+    def run(device):
+        st = pipeline.init_state(cfg, seq.points[0], seq.mask[0], float(seq.stamps[0]), device=device)
+        st, _ = pipeline.step(cfg, st, seq.points[1], seq.mask[1], float(seq.stamps[1]))  # the card's capture
+        with profiling.device_counts(device) as got:
+            for i in range(2, SPAN_SCANS):
+                st, out = pipeline.step(cfg, st, seq.points[i], seq.mask[i], float(seq.stamps[i]))
+                out.odom.T.cpu()
+        return st, got
+
+    st, card = run(dev)
+    buf, opened = profiling.counts_buffer(dev), profiling._OPENED[str(dev)]
+    slots = [i for k, i in profiling._SLOTS.items() if k.startswith("span")]
+    before = buf[:, slots].clone(), opened.clone()
+    pipeline.step(cfg, st, seq.points[SPAN_SCANS], seq.mask[SPAN_SCANS], float(seq.stamps[SPAN_SCANS]))
+    torch.cuda.synchronize()
+    gate_off_same = bool(torch.equal(buf[:, slots], before[0]) and torch.equal(opened, before[1]))
+    pipeline.clear_graphs()  # the later phases capture their own
+    _, host = run("cpu")
+
+    steps = SPAN_SCANS - 2
+    names = ("graph",) + profiling.STAGE_SPANS
+    keys = sorted({k for k in (*card, *host) if k == "span" or (k.startswith("span.") and k.endswith(".n"))})
+    differ = {k: (card.get(k, 0), host.get(k, 0)) for k in keys if card.get(k, 0) != host.get(k, 0)}
+    stage_ns = sum(card.get(f"span.{n}.ns", 0) for n in profiling.STAGE_SPANS)
+
+    made = [0]
+
+    def call():
+        made[0] += 1
+        profiling.mark(dev, begin="smoke")
+
+    with profiling.device_counts(dev) as timed:
+        dev_on = device_times(call, KERNEL_NAMES["span"])
+        call_ms = cuda_ms(call)
+    made_on = made[0]
+    dev_off = device_times(call, KERNEL_NAMES["span"])
+    with profiling.device_counts("cpu"):
+        t0 = time.perf_counter()
+        for _ in range(1000):
+            profiling.mark("cpu", begin="smoke")
+        plain_ms = (time.perf_counter() - t0) / 1000 * 1e3
+    timer = "profiler"
+    if dev_on["ms"] is None:
+        dev_on["ms"], timer = call_ms, "events"
+    rec = dict(kernel="span", case=f"bench_step_{steps}_replays", max_abs_err=max(
+        (abs(a - b) for a, b in differ.values()), default=0), counts_card={k: card.get(k, 0) for k in keys},
+        counts_cpu={k: host.get(k, 0) for k in keys}, stage_ns=stage_ns, graph_ns=card.get("span.graph.ns", 0),
+        gate_off_unchanged=gate_off_same, stamps_timed=made_on, stamps_counted=timed.get("span", 0),
+        timer=timer, call_ms=call_ms, plain_ms=plain_ms, off_ms=dev_off["kernel_ms"],
+        timed_bytes=SPAN_BYTES, bound_ms=SPAN_BYTES / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+        launch_floor_ms=launch_floor_ms(),
+        note="bound by latency: the launch floor, not bytes, sets the time", **dev_on)
+    print("kernel check " + json.dumps(rec), flush=True)
+    check(not differ, f"span: the card's stamps count otherwise than the CPU's: {differ}")
+    check(all(card.get(f"span.{n}.n") == steps for n in names),
+          f"span: not every span closed once a replay: {rec['counts_card']}")
+    check(0 < stage_ns <= rec["graph_ns"], f"span: stages {stage_ns} ns against the graph's {rec['graph_ns']}")
+    check(gate_off_same, "span: a replay with the gate off changed the span counts or open times")
+    check(made_on == rec["stamps_counted"], f"span: {made_on} stamps made, {rec['stamps_counted']} counted")
+    return rec
 
 
 def check_dense(name, query, target):
@@ -3065,6 +3155,7 @@ def main(argv=None) -> int:
         records["lm_decide"] = [check_lm_decide(lm_decide_cases, "scenarios_and_convergence_boundary", 0)]
         del lm_propose_cases, lm_decide_cases
         records["lm_inner"] = [check_lm_inner(lm_inner_cases(dev), "synthetic_routes_and_scenarios", 4)]
+        records["span"] = [check_span(cfg, seq, dev)]
 
     sparse_launches = {}  # nn1_sparse per phase that runs it, each read right after it
     card_launches = {}  # CARD_KERNELS per phase, each read right after it
@@ -3239,7 +3330,7 @@ def main(argv=None) -> int:
         print(f"at {time.perf_counter() - t_start:.1f} s: phase 17", flush=True)
         launches["set_cond"] = graph_phase(cfg, seq, card, fresh_names)["launches"]["set_cond"]
     launches["nn1_sparse"] = sum(sparse_launches.values())
-    launches.update({k: PATH_LAUNCHES[k] for k in ("lm_inner", "lm_propose", "lm_decide")})
+    launches.update({k: PATH_LAUNCHES[k] for k in ("lm_inner", "lm_propose", "lm_decide", "span")})
     for k in CARD_KERNELS:
         launches[k] = sum(v.get(k, 0) for v in card_launches.values())
     print(f"nn1_sparse launches by phase: {json.dumps(sparse_launches)}", flush=True)

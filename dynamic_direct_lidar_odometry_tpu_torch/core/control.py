@@ -41,7 +41,10 @@ Outside a capture the calls run one after another.
 the inputs are copied into its static buffers and the outputs cloned out
 of it, so a returned tensor never aliases memory that the next replay
 writes. A capture or conditional-node failure raises; nothing falls back
-to the eager driver.
+to the eager driver. Its captured body is :func:`traced`: the ``graph``
+span (``utils.profiling.mark``) from its first node to its last; a call
+is the host spans ``entry.copy_in``, ``entry.launch`` (the
+``cudaGraphLaunch``) and ``entry.clone``.
 """
 
 from __future__ import annotations
@@ -456,6 +459,7 @@ class Graph:
     def __init__(self, fn: Callable[..., Any], inputs: Sequence[Any], branches: int = 0):
         first = next(x for x in _leaves(inputs) if isinstance(x, torch.Tensor))
         self.device = first.device
+        fn = traced(fn, self.device)
         self.stream = streams(self.device)[0]
         self.static_in = tree.map_leaves(_clone, tuple(inputs))
         cur = torch.cuda.current_stream(self.device)
@@ -477,10 +481,33 @@ class Graph:
         self.replays = 0
 
     def __call__(self, *inputs: Any) -> Any:
-        tree.map_leaves(_copy_in, self.static_in, tuple(inputs))
-        self.graph.replay()
+        with _COPY_IN:
+            tree.map_leaves(_copy_in, self.static_in, tuple(inputs))
+        with _LAUNCH:
+            self.graph.replay()
         self.replays += 1
-        return tree.map_leaves(_clone, self.static_out)
+        with _CLONE:
+            return tree.map_leaves(_clone, self.static_out)
+
+
+_COPY_IN = profiling.span("entry.copy_in")
+_LAUNCH = profiling.span("entry.launch")
+_CLONE = profiling.span("entry.clone")
+
+
+def traced(fn: Callable[..., Any], device: torch.device) -> Callable[..., Any]:
+    """``fn`` inside the ``graph`` span (``device``'s clock, the calling
+    thread's count row: 0 outside a branch): the body that :class:`Graph`
+    captures, and that the entries run as it is where they run no graph
+    (the CPU, the eager step)."""
+
+    def body(*args: Any) -> Any:
+        profiling.mark(device, begin="graph")
+        out = fn(*args)
+        profiling.mark(device, end="graph")
+        return out
+
+    return body
 
 
 class GraphCache:

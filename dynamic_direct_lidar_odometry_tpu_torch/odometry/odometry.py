@@ -24,6 +24,7 @@ from dynamic_direct_lidar_odometry_tpu_torch.core.cloud import SENTINEL
 from dynamic_direct_lidar_odometry_tpu_torch.odometry import keyframes as kf
 from dynamic_direct_lidar_odometry_tpu_torch.odometry import preprocess as prep
 from dynamic_direct_lidar_odometry_tpu_torch.ops import covariance, filters, gicp
+from dynamic_direct_lidar_odometry_tpu_torch.utils import profiling
 
 
 class OdomState(NamedTuple):
@@ -177,11 +178,13 @@ def step(
     summed over the group inside every LM iteration; the S2M residuals are
     gathered back to full length. Everything else runs on every rank."""
     dev = state.T.device
+    profiling.mark(dev, begin="preprocess")
     p = prep.preprocess(cfg, raw_points, raw_mask)
     spacious = 0.95 * state.spaciousness + 0.05 * p.spaciousness_median
     kf_thresh_d = prep.adaptive_keyframe_thresh(spacious)
 
     N = p.points.shape[0]
+    profiling.mark(dev, "preprocess", "covariances")
     if axis_name is not None:
         from dynamic_direct_lidar_odometry_tpu_torch.parallel import distributed
 
@@ -205,6 +208,7 @@ def step(
         src = (p.points, p.mask, src_covs)
 
     # scan-to-scan (odom.cc:754-762); no residual pass for S2S
+    profiling.mark(dev, "covariances", "s2s")
     s2s_guess = state.prev_rel if cfg.initial_guess_motion else torch.eye(4, device=dev)
     s2s = gicp.align(
         *src, state.prev_points, state.prev_mask, state.prev_covs, s2s_guess,
@@ -213,6 +217,7 @@ def step(
     T_s2s = se3.compose(state.T_s2s_prev, s2s.T)
 
     # submap selection + gather (odom.cc:775-784)
+    profiling.mark(dev, "s2s", "submap")
     alpha = state.keyframe_thresh_dist
     if hull_masks is not None:
         cv_mask, cc_mask = hull_masks
@@ -243,6 +248,7 @@ def step(
     )
 
     # scan-to-submap with S2S as guess (odom.cc:787-793)
+    profiling.mark(dev, "submap", "s2m")
     s2m = gicp.align(
         *src, sub_pts, sub_mask, sub_covs, T_s2s, _settings(cfg.gicp.s2m),
         axis_name=axis_name,
@@ -256,6 +262,7 @@ def step(
     rotq = se3.matrix_to_quat(T_new[:3, :3])
     reg_world = se3.transform_points(T_new, p.points)
     reg_world = torch.where(p.mask[:, None], reg_world, SENTINEL)
+    profiling.mark(dev, end="s2m")
 
     new_state = OdomState(
         T=T_new,

@@ -39,6 +39,7 @@ from dynamic_direct_lidar_odometry_tpu_torch.core.cloud import SENTINEL
 from dynamic_direct_lidar_odometry_tpu_torch.ops import gicp_xla
 from dynamic_direct_lidar_odometry_tpu_torch.ops import knn as knn_ops
 from dynamic_direct_lidar_odometry_tpu_torch.ops import nn_cuda
+from dynamic_direct_lidar_odometry_tpu_torch.utils import profiling
 
 
 class GICPSettings(NamedTuple):
@@ -686,6 +687,7 @@ def align(
             H_st.copy_(H)
         else:
             st = lm_inner(x0, lam, y0, H, b, aux, degenerate)
+            profiling.count(dev, "lm_trials", st.j)
             x_new = st.x
             conv_new = degenerate | st.conv | (st.accepted & _is_converged(st.delta_done, eps))
             failed.copy_(~st.done & ~degenerate)  # lm_max_iterations exhausted
@@ -845,6 +847,7 @@ def align_batch(
             H_new = H
         else:
             st = lm_inner(run, degenerate, x0, lam, y0, H, b, aux)
+            profiling.count(dev, "lm_trials", st.j.sum())
             x_new = st.x  # a degenerate stream runs no trial: x0
             conv_new = degenerate | st.conv | (st.accepted & _is_converged(st.delta_done, eps))
             failed.logical_or_(run & ~degenerate & ~st.done)

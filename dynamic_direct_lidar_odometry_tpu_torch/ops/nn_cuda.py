@@ -154,11 +154,13 @@ def nn1_sparse_reference(
 
 # every library of the port's CUDA sources: this module's, and those of
 # ``ops/hungarian.py`` (``jv_solve``), ``ops/covariance.py``
-# (``plane_reg``), ``core/control.py`` (``graph_cond``) and
-# ``ops/gicp.py`` (``lm_trial``), built together at first use
+# (``plane_reg``), ``core/control.py`` (``graph_cond``),
+# ``ops/gicp.py`` (``lm_trial``) and ``utils/profiling.py`` (``trace``),
+# built together at first use
 _SOURCES = {"nn1_sparse": ("nn1_sparse.cu",), "knn_classes": ("knn_classes.cu",),
             "jv_solve": ("jv_solve.cu",), "plane_reg": ("plane_reg.cu",),
-            "graph_cond": ("graph_cond.cu",), "lm_trial": ("lm_trial.cu",)}
+            "graph_cond": ("graph_cond.cu",), "lm_trial": ("lm_trial.cu",),
+            "trace": ("trace.cu",)}
 _BUILT: Dict[str, _cuda_build.Built] = {}
 
 
@@ -198,6 +200,7 @@ def build() -> Dict[str, _cuda_build.Built]:
          + [ctypes.c_float] * 2 + [P]),
         ("lm_trial", "ddlo_lm_inner_shared_max_n", []),
         ("lm_trial", "ddlo_lm_inner_layout", []),
+        ("trace", "ddlo_span", [P] * 3 + [I] * 4 + [P]),
     ):
         f = getattr(built[lib].lib, fn)
         f.argtypes = args

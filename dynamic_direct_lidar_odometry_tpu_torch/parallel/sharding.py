@@ -37,6 +37,7 @@ from dynamic_direct_lidar_odometry_tpu_torch.core import device as device_mod
 from dynamic_direct_lidar_odometry_tpu_torch.core import tree as tree_mod
 from dynamic_direct_lidar_odometry_tpu_torch.ops import gicp
 from dynamic_direct_lidar_odometry_tpu_torch.parallel import distributed
+from dynamic_direct_lidar_odometry_tpu_torch.utils import profiling
 
 DP_AXIS = "dp"
 PT_AXIS = "pt"
@@ -44,6 +45,8 @@ PT_AXIS = "pt"
 # never evict the single-stream step's)
 MAX_GRAPHS = 4
 _GRAPHS = control.GraphCache(MAX_GRAPHS)
+# the batched step's host span before the graph's call (``pipeline.step``'s)
+_PREPARE = profiling.span("entry.prepare")
 
 
 class Mesh(NamedTuple):
@@ -197,13 +200,15 @@ def batched_pipeline_step(cfg: DDLOConfig, mesh: Mesh):
 
     def step(states, raw_points, raw_mask, stamps):
         dev = mesh.device
-        args = (states, torch.as_tensor(raw_points, dtype=torch.float32, device=dev),
-                torch.as_tensor(raw_mask, dtype=torch.bool, device=dev),
-                torch.as_tensor(stamps, device=dev).to(torch.float32))
-        if dev.type != "cuda":
-            return body(*args)
-        B = args[1].shape[0]
-        return _GRAPHS.get("step", cfg, body, args, branches=B)(*args)
+        with _PREPARE:
+            args = (states, torch.as_tensor(raw_points, dtype=torch.float32, device=dev),
+                    torch.as_tensor(raw_mask, dtype=torch.bool, device=dev),
+                    torch.as_tensor(stamps, device=dev).to(torch.float32))
+            if dev.type == "cuda":
+                run = _GRAPHS.get("step", cfg, body, args, branches=args[1].shape[0])
+            else:
+                run = control.traced(body, dev)
+        return run(*args)
 
     return step
 

@@ -44,6 +44,7 @@ from dynamic_direct_lidar_odometry_tpu_torch.ops import filters
 from dynamic_direct_lidar_odometry_tpu_torch.ops.bbox import Objects
 from dynamic_direct_lidar_odometry_tpu_torch.tracking import tracker
 from dynamic_direct_lidar_odometry_tpu_torch.tracking.tracker import DYNAMIC, UNDEFINED
+from dynamic_direct_lidar_odometry_tpu_torch.utils import profiling
 
 
 class DDLOState(NamedTuple):
@@ -106,11 +107,14 @@ def step(
     (``axis_name``) run it op by op from the host, as :func:`step_eager`
     does."""
     dev = state.odom.T.device
-    raw_points, raw_mask, stamp = _inputs(dev, raw_points, raw_mask, timestamp)
-    if dev.type != "cuda" or axis_name is not None:
-        return _step(cfg, state, raw_points, raw_mask, stamp, hull_masks, axis_name, pt_size)
-    args = (state, raw_points, raw_mask, stamp, hull_masks)
-    return _GRAPHS.get("step", cfg, lambda *a: _step(cfg, *a), args)(*args)
+    with _PREPARE:
+        raw_points, raw_mask, stamp = _inputs(dev, raw_points, raw_mask, timestamp)
+        args = (state, raw_points, raw_mask, stamp, hull_masks)
+        if dev.type == "cuda" and axis_name is None:
+            run = _GRAPHS.get("step", cfg, lambda *a: _step(cfg, *a), args)
+        else:
+            run = control.traced(lambda *a: _step(cfg, *a, axis_name, pt_size), dev)
+    return run(*args)
 
 
 def step_eager(cfg: DDLOConfig, state: DDLOState, raw_points, raw_mask, timestamp,
@@ -120,8 +124,10 @@ def step_eager(cfg: DDLOConfig, state: DDLOState, raw_points, raw_mask, timestam
     """:func:`step` driven from the host op by op: every loop and branch
     reads its predicate back between turns."""
     dev = state.odom.T.device
-    raw_points, raw_mask, stamp = _inputs(dev, raw_points, raw_mask, timestamp)
-    return _step(cfg, state, raw_points, raw_mask, stamp, hull_masks, axis_name, pt_size)
+    with _PREPARE:
+        raw_points, raw_mask, stamp = _inputs(dev, raw_points, raw_mask, timestamp)
+    return control.traced(_step, dev)(cfg, state, raw_points, raw_mask, stamp, hull_masks, axis_name,
+                                      pt_size)
 
 
 def _inputs(dev, raw_points, raw_mask, timestamp):
@@ -138,6 +144,9 @@ def _inputs(dev, raw_points, raw_mask, timestamp):
 # most MAX_GRAPHS, the least recently used dropped first
 MAX_GRAPHS = 4
 _GRAPHS = control.GraphCache(MAX_GRAPHS)
+# the entry's host span before the graph's call: the inputs on the device
+# and the graph found by signature
+_PREPARE = profiling.span("entry.prepare")
 
 
 def clear_graphs() -> None:
@@ -182,10 +191,12 @@ def _step(cfg, state, raw_points, raw_mask, stamp, hull_masks=None, axis_name=No
         # ---- dynamic perception (applySegmentation, odom.cc:853-919) ----
         # prev_points is THIS scan's preprocessed cloud (sensor frame), the
         # cloud whose residuals came out of S2M
+        profiling.mark(dev, begin="detection")
         det = detection.detect(
             cfg, seg_world, raw_mask, odo_state.prev_points, odo_state.prev_mask,
             odo.residuals, odo.T, seg_points_sensor=raw_points,
         )
+        profiling.mark(dev, "detection", "tracker")
         dt = torch.clamp_min(stamp - state.prev_stamp, 1e-3)
         trk_state, trk_out = tracker.update(cfg.tracking, state.tracks, det.objects, dt)
 
@@ -226,9 +237,11 @@ def _step(cfg, state, raw_points, raw_mask, stamp, hull_masks=None, axis_name=No
         kf_pts, kf_mask = sp, m
 
     # ---- keyframe update on the (dynamic-free) world cloud ----
+    profiling.mark(dev, "tracker" if cfg.dynamic_detection else None, "keyframes")
     odo_state, added = odometry.update_keyframes(
         cfg, odo_state, kf_pts, kf_mask, refilter=bool(cfg.dynamic_detection)
     )
+    profiling.mark(dev, end="keyframes")
 
     new_state = DDLOState(odom=odo_state, tracks=trk_state, prev_stamp=stamp)
     outputs = DDLOOutputs(
@@ -271,7 +284,7 @@ def step_chunk(
     ts_stack = torch.as_tensor(ts_stack, dtype=torch.float32, device=dev)
     args = (state, pts_stack, mask_stack, ts_stack, hull_masks)
     if dev.type != "cuda":
-        return _chunk(cfg, *args)
+        return control.traced(_chunk, dev)(cfg, *args)
     return _GRAPHS.get("chunk", cfg, lambda *a: _chunk(cfg, *a), args)(*args)
 
 

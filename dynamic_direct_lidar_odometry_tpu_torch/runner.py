@@ -12,13 +12,15 @@ step is dispatched first, then scan ``i-1`` is finalized. The order is
 part of the result: with ``hulls="exact"`` the host hull masks that feed
 step ``i`` come from the state after scan ``i-2``.
 
-Also here: per-stage profiling (odom.cc:189-192), reference-format
+Also here: per-stage profiling (odom.cc:189-192; with the dashboard on,
+tracing is on and the device spans fill its stage rows), reference-format
 evaluation dumps (detection.cpp:910-954), checkpoint/resume, and the
 end-of-run map save (map.cc:158-189).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -188,9 +190,13 @@ def replay(
         obj_trajs.save(os.path.join(out_dir, f"object_traj_{tag}"))
 
     def finalize(p) -> bool:
-        """Host and map bookkeeping for an already-dispatched scan.
-        Returns False if the scan's pose went non-finite (the caller
-        rolls back)."""
+        """Host and map bookkeeping for an already-dispatched scan (the
+        host span ``runner.finalize``). Returns False if the scan's pose
+        went non-finite (the caller rolls back)."""
+        with _FINALIZE:
+            return bookkeeping(p)
+
+    def bookkeeping(p) -> bool:
         nonlocal map_state, hull_masks
         i, out, st = p["i"], p["out"], p["state"]
 
@@ -305,6 +311,7 @@ def replay(
                 f"{pose[1]:+.2f}, {pose[2]:+.2f}) dyn_px={n_dyn}"
             )
         if dashboard_every and i % dashboard_every == 0:
+            stage_rows(prof, profiling.interval(dev))
             print(
                 debug_dashboard(
                     prof, i, n_scans, pose, quat,
@@ -324,55 +331,55 @@ def replay(
             pts, msk = pts.pin_memory(), msk.pin_memory()
         return pts.to(dev, non_blocking=True), msk.to(dev, non_blocking=True)
 
-    pending = None  # the scan whose bookkeeping is deferred one iteration
-    last_t = None
-    staged = None  # (idx, pts, msk): the next scan, uploaded one scan ahead
-    for i in range(start, n_scans):
-        # low-return scan drop (odom.cc:635-639: "Low number of points!")
-        if int(seq.mask[i].sum()) < cfg.gicp.min_num_points:
-            dropped += 1
-            continue
-        if staged is not None and staged[0] == i:
-            pts, msk = staged[1], staged[2]
-        else:
-            pts, msk = upload(i)
-        staged = None
-        ts = float(np.float32(seq.stamps[i]))
+    # tracing on under the dashboard: its stage rows read the device spans
+    with profiling.device_counts(dev) if dashboard_every else contextlib.nullcontext():
+        pending = None  # the scan whose bookkeeping is deferred one iteration
+        last_t = None
+        staged = None  # (idx, pts, msk): the next scan, uploaded one scan ahead
+        for i in range(start, n_scans):
+            # low-return scan drop (odom.cc:635-639: "Low number of points!")
+            if int(seq.mask[i].sum()) < cfg.gicp.min_num_points:
+                dropped += 1
+                continue
+            if staged is not None and staged[0] == i:
+                pts, msk = staged[1], staged[2]
+            else:
+                pts, msk = upload(i)
+            staged = None
+            ts = float(np.float32(seq.stamps[i]))
 
-        # per-scan wall time, dispatch to dispatch: the step plus the
-        # overlapped bookkeeping (the reference's "total", odom.cc:617-618,715)
-        now = time.perf_counter()
-        if last_t is not None:
-            prof["total"].add((now - last_t) * 1e3)
-        last_t = now
+            # per-scan wall time, dispatch to dispatch: the step plus the
+            # overlapped bookkeeping (the reference's "total", odom.cc:617-618,715)
+            now = time.perf_counter()
+            if last_t is not None:
+                prof["total"].add((now - last_t) * 1e3)
+            last_t = now
 
-        prev_state = state
-        with profiling.annotation("total"):
+            prev_state = state
             state, out = pipeline.step(cfg, state, pts, msk, ts, hull_masks)
 
-        if pending is not None and not finalize(pending):
-            # the pending scan's pose was non-finite: restore the state
-            # from before it, drop the step built on it, and dispatch this
-            # scan again against the restored state
-            state = pending["prev_state"]
-            dropped += 1
-            pending = None
-            last_t = None
-            prev_state = state
-            with profiling.annotation("total"):
+            if pending is not None and not finalize(pending):
+                # the pending scan's pose was non-finite: restore the state
+                # from before it, drop the step built on it, and dispatch this
+                # scan again against the restored state
+                state = pending["prev_state"]
+                dropped += 1
+                pending = None
+                last_t = None
+                prev_state = state
                 state, out = pipeline.step(cfg, state, pts, msk, ts, hull_masks)
-        if i + 1 < n_scans and int(seq.mask[i + 1].sum()) >= cfg.gicp.min_num_points:
-            staged = (i + 1, *upload(i + 1))
-        pending = {
-            "i": i, "out": out, "state": state,
-            "prev_state": prev_state, "stamp": float(seq.stamps[i]),
-        }
-    if pending is not None:
-        if not finalize(pending):
-            state = pending["prev_state"]
-            dropped += 1
-        if last_t is not None:
-            prof["total"].add((time.perf_counter() - last_t) * 1e3)
+            if i + 1 < n_scans and int(seq.mask[i + 1].sum()) >= cfg.gicp.min_num_points:
+                staged = (i + 1, *upload(i + 1))
+            pending = {
+                "i": i, "out": out, "state": state,
+                "prev_state": prev_state, "stamp": float(seq.stamps[i]),
+            }
+        if pending is not None:
+            if not finalize(pending):
+                state = pending["prev_state"]
+                dropped += 1
+            if last_t is not None:
+                prof["total"].add((time.perf_counter() - last_t) * 1e3)
 
     if prev_usr1 is not None:
         signal.signal(signal.SIGUSR1, prev_usr1)
@@ -437,6 +444,32 @@ def _cpu_stats() -> tuple:
             pass
         _cpu_stats._model = model
     return pct, os.cpu_count() or 1, model
+
+
+_FINALIZE = profiling.span("runner.finalize")
+
+
+def stage_rows(prof: profiling.Profiler, spans: dict) -> None:
+    """An interval's spans (``profiling.interval``) in the dashboard's
+    rows, as mean ms a scan: device spans in ``odometry`` (preprocess
+    through S2M), ``dynamic`` (detection and the tracker) and
+    ``trackDetections`` (the tracker); the host span ``runner.finalize``
+    (the replay's bookkeeping of a scan, one scan late) in ``finalize``.
+    No span feeds ``projectScan``, ``projectResiduals``,
+    ``groundRemoval``, ``cloudSegmentation`` or ``computeAllObjects``
+    (stages inside ``detection``); ``total`` is the host's
+    dispatch-to-dispatch time."""
+    n = spans.get("span.preprocess.n")
+    if n:
+        def ms(*names):
+            return sum(spans.get(f"span.{s}.ns", 0) for s in names) / n / 1e6
+
+        prof["odometry"].add(ms(*profiling.STAGE_SPANS[:5]))
+        if spans.get("span.detection.n"):
+            prof["dynamic"].add(ms("detection", "tracker"))
+            prof["trackDetections"].add(ms("tracker"))
+    if spans.get("host.runner.finalize.n"):
+        prof["finalize"].add(spans["host.runner.finalize.ns"] / spans["host.runner.finalize.n"] / 1e6)
 
 
 def debug_dashboard(

@@ -221,19 +221,6 @@ def test_profiling_statistics_match_jax():
     assert p["never"].row() == j["never"].row()
 
 
-def test_stage_timer_and_trace(tmp_path):
-    prof = profiling.Profiler()
-    with prof.stage("odometry") as h:
-        h.value = (torch.ones(4) * 2, {"x": torch.zeros(2)})
-    assert prof["odometry"].n == 1 and prof["odometry"].last >= 0.0
-    with pytest.raises(RuntimeError, match="without tick"):
-        profiling.Accumulator("x").tock()
-    with profiling.trace(str(tmp_path / "tr")):
-        with profiling.annotation("total"):
-            torch.ones(8).sum()
-    assert os.path.getsize(tmp_path / "tr" / "trace.json") > 0
-
-
 def test_device_busy_counts_overlaps_once():
     from types import SimpleNamespace as NS
 
