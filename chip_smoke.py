@@ -55,7 +55,15 @@ Phases, in order; any failure exits non-zero and prints no result:
    tie; pass: every row bit-equal, one launch and two device operations
    (the kernel and its count add) per call; ``torch.topk`` of the same
    distances timed beside it. Each prints device ms, call ms, plain ms
-   and its bound. The capture
+   and its bound. The segment gates and slots, ``segment_objects``
+   (``csrc/segment_objects.cu`` ``ddlo_segment_objects``), against
+   ``segment_objects_plain`` on the card: on ``tests/torch_segment_cases.py``'s
+   cases (the CPU tests' inputs) and, after phase 5, on every
+   ``segment_objects`` call of that phase's eager run (the bench scans,
+   timed on the first, with the plain version and the launches one call
+   puts on the card); pass: every output bit-equal (slot roots,
+   ``slot_valid``, ``pixel_slot``, the slot means as bits, ``seg_roots``),
+   one launch per call. The capture
    driver's ``set_cond`` (``csrc/graph_cond.cu``): a nested WHILE loop and
    an IF/ELSE branch captured into a graph and replayed on four inputs
    (0 to 27 inner turns), each replay without any synchronization,
@@ -112,7 +120,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    or ``regularize_plane`` (the exact path), and on the bench
    configuration's window path no ``regularize_plane`` (the same launch
    checks in phases 6, 9, 11, 15 and 16; phase 16's exact legs no
-   ``window_plane_cov``); on the graph run and on
+   ``window_plane_cov``); one ``segment_objects`` launch per
+   ``tracker.update`` (phases 5, 6, 9, 11, 14 and 17); on the graph run and on
    the eager one, one ``lm_inner`` launch per lambda loop (the eager
    run's ``gicp.TORCH.lm_inner`` calls), no ``lm_propose`` or
    ``lm_decide`` launch and no error re-evaluation, and no eager
@@ -289,7 +298,8 @@ phases 7, 15 and 16, phase 15's summed over both ranks; ``jv_solve``'s,
 ``regularize_plane``'s and ``window_plane_cov``'s from phases 5, 6, 9,
 11, 15 and 16; ``set_cond``'s
 from phase 17's graph run; ``lm_inner``'s from every phase that counts
-with ``main_path_counts`` and phase 13; ``lm_propose``'s and
+with ``main_path_counts`` and phase 13; ``segment_objects``' from every
+phase that counts with ``main_path_counts``; ``lm_propose``'s and
 ``lm_decide``'s from those and phase 15's ranks); the last line
 is ``{"ok": true, "device": {...}}`` (full runs only).
 """
@@ -367,6 +377,9 @@ KERNELS = {
     # the stage timer on the device: the JAX package times stages on the host
     "span": dict(source=f"{PKG}/csrc/trace.cu",
                  replaces="dynamic_direct_lidar_odometry_tpu/utils/profiling.py:104"),
+    # no Pallas kernel: the JAX package leaves the segment gates to XLA
+    "segment_objects": dict(source=f"{PKG}/csrc/segment_objects.cu",
+                            replaces="dynamic_direct_lidar_odometry_tpu/ops/segmentation.py:360"),
 }
 # the bound: FP32 work at the H100 SXM's non-tensor issue rate (67 TFLOP/s
 # counts an FMA as 2; the function rounds every operation, so none fuses:
@@ -396,6 +409,9 @@ LM_PROPOSE_F32_OPS, LM_DECIDE_F32_OPS = 305, 67
 # e 6, M e 15, e . Me 5, the running sum 1); per trial the proposal, the
 # compose (16 entries of 4 products and 3 sums) and the decision
 LM_POINT_F32_OPS, LM_TRIAL_F32_OPS = 45, LM_PROPOSE_F32_OPS + 112 + LM_DECIDE_F32_OPS
+# segment_objects' bytes a pixel: its label, range and residual (4 each)
+# and point (12) read once, its slot (4) written once
+SEGMENT_BYTES_PER_PIXEL = 28
 
 
 def lm_propose_bytes(streams: int, zero: bool) -> int:
@@ -653,7 +669,9 @@ PTXAS_NAMES = {"nn1_kernelILb0": "nn1_sparse", "nn1_kernelILb1": "nn1_dense",
                "jv_solve_kernel": "jv_solve", "plane_reg_kernel": "regularize_plane",
                "window_cov_kernel": "window_plane_cov",
                "set_cond_kernel": "set_cond", "lm_propose_kernel": "lm_propose",
-               "lm_decide_kernel": "lm_decide", "lm_inner_kernel": "lm_inner", "span_kernel": "span"}
+               "lm_decide_kernel": "lm_decide", "lm_inner_kernel": "lm_inner", "span_kernel": "span",
+               "seg_count_kernel": "segment_objects", "seg_select_kernel": "segment_objects",
+               "seg_stats_kernel": "segment_objects", "seg_finish_kernel": "segment_objects"}
 
 
 def ptxas_report(log: str) -> dict:
@@ -690,7 +708,8 @@ KERNEL_NAMES = {"nn1_sparse": "nn1_kernel<false>", "nn1_dense": "nn1_kernel<true
                 "jv_solve": "jv_solve_kernel", "regularize_plane": "plane_reg_kernel",
                 "window_plane_cov": "window_cov_kernel",
                 "lm_propose": "lm_propose_kernel", "lm_decide": "lm_decide_kernel",
-                "lm_inner": "lm_inner_kernel", "span": "span_kernel"}
+                "lm_inner": "lm_inner_kernel", "span": "span_kernel",
+                "segment_objects": "seg_finish_kernel"}  # a call's last kernel
 
 
 def _record(kernel, case, Q, T, err, identical, pairs, nbytes, call, plain_ms, cdist_ms, **extra):
@@ -1494,10 +1513,89 @@ def main_path_counts(tag=None, window=None):
         yield out
     out.update({k: 0 for k in KERNELS}, tracker_updates=0, covariance_calls=0, ccl_sweeps=0)
     out.update(counts)
-    PATH_LAUNCHES.update({k: out[k] for k in ("lm_inner", "lm_propose", "lm_decide", "span")})
+    PATH_LAUNCHES.update({k: out[k] for k in ("lm_inner", "lm_propose", "lm_decide", "span",
+                                              "segment_objects")})
     if tag is not None:
         check_card_kernels(tag, out, out["tracker_updates"], out["covariance_calls"],
                            sum(hungarian.HOST_READS.values()), window)
+        check(out["segment_objects"] == out["tracker_updates"],
+              f"{tag}: segment_objects launched {out['segment_objects']} times for "
+              f"{out['tracker_updates']} tracker updates")
+
+
+def segment_cases(dev):
+    """(name, args, kw) of ``tests/torch_segment_cases.py``'s cases on ``dev``."""
+    import torch
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    try:
+        import torch_segment_cases
+    finally:
+        sys.path.pop(0)
+    out = []
+    for name in torch_segment_cases.CASES:
+        labels, ranges, pts, res, h, kw = torch_segment_cases.case(name)
+        out.append((f"cpu_test_{name}", [torch.from_numpy(np.asarray(x)).to(dev)
+                                         for x in (labels, ranges, pts, res, h)], kw))
+    return out
+
+
+def check_segment_objects(cases, tag, time_case=None):
+    """``segmentation.segment_objects`` (the kernel) against
+    ``segment_objects_plain`` on the card, every output as bits and the
+    ``seg_roots`` each adds; one launch a call. Timed on ``cases[time_case]``
+    (device ms of a call's operations, the kernel table's columns)."""
+    import torch
+
+    from dynamic_direct_lidar_odometry_tpu_torch.ops import nn_cuda, segmentation
+    from dynamic_direct_lidar_odometry_tpu_torch.utils import profiling
+
+    off, launched, roots = [], [], []
+    for name, a, kw in cases:
+        before = nn_cuda.LAUNCHES["segment_objects"]
+        with profiling.device_counts("cuda") as kc:
+            got = segmentation.segment_objects(*a, **kw)
+        launched.append(nn_cuda.LAUNCHES["segment_objects"] - before)
+        with profiling.device_counts("cuda") as pc:
+            plain = segmentation.segment_objects_plain(*a, **kw)
+        same = all(x.dtype == y.dtype and x.shape == y.shape
+                   and np.array_equal(x.cpu().numpy().view(np.uint8), y.cpu().numpy().view(np.uint8))
+                   for x, y in zip(got, plain))
+        roots.append(kc.get("seg_roots", 0))
+        if not same or kc.get("seg_roots", 0) != pc.get("seg_roots", 0):
+            off.append(name)
+    rec = dict(kernel="segment_objects", case=tag, calls=len(cases), cases_not_bit_equal=off,
+               launches_per_call=sorted(set(launched)), seg_roots=roots,
+               max_abs_err=0.0 if not off else None, all_rows_identical=not off)
+    if time_case is not None:
+        _, a, kw = cases[time_case]
+        n = a[0].numel()
+        call = lambda: segmentation.segment_objects(*a, **kw)  # noqa: E731
+        dev = device_times(call, KERNEL_NAMES["segment_objects"])
+        call_ms = cuda_ms(call)
+        timer = "profiler"
+        if dev["ms"] is None:
+            dev["ms"], timer = call_ms, "events"
+        b, by = bound_ms(0, SEGMENT_BYTES_PER_PIXEL * n)
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(20):
+                call()
+            torch.cuda.synchronize()
+        ops = collections.defaultdict(list)
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                key = next((k for k in ("seg_count", "seg_select", "seg_stats", "seg_finish", "Memset")
+                            if k in e.name), e.name[:40])
+                ops[key].append((e.time_range.end - e.time_range.start) / 1e3)
+        rec.update(timed=cases[time_case][0], pixels=n, candidates=kw.get("candidates"),
+                   bound_ms=b, bound_by=by, timer=timer, call_ms=call_ms,
+                   plain_ms=cuda_ms(lambda: segmentation.segment_objects_plain(*a, **kw), reps=5),
+                   launch_floor_ms=launch_floor_ms(),
+                   op_ms={k: statistics.median(v) for k, v in ops.items()}, **dev)
+    print("kernel check " + json.dumps(rec), flush=True)
+    check(not off, f"segment_objects {tag}: the kernel differs from its plain version on {off}")
+    check(launched and set(launched) == {1}, f"segment_objects {tag}: {launched} launches a call")
+    return rec
 
 
 def check_span(cfg, seq, dev):
@@ -1763,13 +1861,16 @@ def recorded(mod, names):
 
 
 @contextlib.contextmanager
-def recorded_calls(mod, name):
+def recorded_calls(mod, name, clone=False):
     """Keep the (args, kwargs) of every call of ``mod.<name>`` in a list,
-    without touching what it does."""
+    without touching what it does (``clone``: copies of its positional
+    tensors, which a later step may overwrite)."""
+    import torch
+
     calls, real = [], getattr(mod, name)
 
     def f(*a, **kw):
-        calls.append((a, kw))
+        calls.append((tuple(x.clone() if clone and isinstance(x, torch.Tensor) else x for x in a), kw))
         return real(*a, **kw)
 
     setattr(mod, name, f)
@@ -3156,6 +3257,7 @@ def main(argv=None) -> int:
         del lm_propose_cases, lm_decide_cases
         records["lm_inner"] = [check_lm_inner(lm_inner_cases(dev), "synthetic_routes_and_scenarios", 4)]
         records["span"] = [check_span(cfg, seq, dev)]
+        records["segment_objects"] = [check_segment_objects(segment_cases(dev), "cpu_test_cases")]
 
     sparse_launches = {}  # nn1_sparse per phase that runs it, each read right after it
     card_launches = {}  # CARD_KERNELS per phase, each read right after it
@@ -3187,7 +3289,9 @@ def main(argv=None) -> int:
         # (phase 3) are recorded from an eager run of the same scans: a
         # graph replay calls no Python
         with s2m_calls(ALIGN_B) as s2m, recorded_calls(hungarian, "solve") as solves, \
-                recorded_trials() as trials, profiling.device_counts("cuda") as eager_counts:
+                recorded_trials() as trials, \
+                recorded_calls(segmentation, "segment_objects", clone=True) as seg_calls, \
+                profiling.device_counts("cuda") as eager_counts:
             eager_poses, _ = run_slice(cfg, seq.points[:n], seq.mask[:n], seq.stamps[:n], dev, eager=True)
         linz = sum(r["s2s_iterations"] + r["s2m_iterations"] + 1 for r in steps)
         inputs = steps[keep - 1].pop("inputs")
@@ -3237,6 +3341,11 @@ def main(argv=None) -> int:
             records["lm_propose"].insert(0, check_lm_propose(propose, "bench_first_trials_16_scans", 0))
             records["lm_decide"].insert(0, check_lm_decide(decide, "bench_first_trials_16_scans", 0))
             del loops, more, propose, decide
+            # the segment gates on every detection of the eager run, timed
+            # on its first
+            records["segment_objects"].insert(0, check_segment_objects(
+                [(f"scan_{i}", a, kw) for i, (a, kw) in enumerate(seg_calls)], "bench_scans_16", 0))
+        del seg_calls
 
     if 6 in phases:
         # ---- 6. detection + tracking, card vs host ----
@@ -3330,7 +3439,8 @@ def main(argv=None) -> int:
         print(f"at {time.perf_counter() - t_start:.1f} s: phase 17", flush=True)
         launches["set_cond"] = graph_phase(cfg, seq, card, fresh_names)["launches"]["set_cond"]
     launches["nn1_sparse"] = sum(sparse_launches.values())
-    launches.update({k: PATH_LAUNCHES[k] for k in ("lm_inner", "lm_propose", "lm_decide", "span")})
+    launches.update({k: PATH_LAUNCHES[k] for k in ("lm_inner", "lm_propose", "lm_decide", "span",
+                                                    "segment_objects")})
     for k in CARD_KERNELS:
         launches[k] = sum(v.get(k, 0) for v in card_launches.values())
     print(f"nn1_sparse launches by phase: {json.dumps(sparse_launches)}", flush=True)

@@ -199,9 +199,10 @@ class CapacityConfig:
     max_keyframe_points: int = 16384  # per-keyframe stored (voxelized) cloud
     max_objects: int = 32  # detections per frame
     max_tracks: int = 32  # tracker slots
-    # candidate-root budget for the fused segment gates (segmentation.
-    # segment_objects): stats beyond the per-root size run dense over
-    # this many top-size roots instead of scattering over all H*W
+    # candidate-root budget of the fused segment gates (segmentation.
+    # segment_objects): only this many of the largest roots are gated, as in
+    # the JAX package, whose semantics the port keeps; the device count
+    # seg_roots (the roots passing the minimum size) shows whether it binds
     segment_candidates: int = 256
     bbox_history: int = 5  # rolling static bbox history per track
     max_map_points: int = 2_000_000  # global map accumulator
@@ -513,12 +514,11 @@ def bench_config(**overrides: Any) -> DDLOConfig:
             # the scene)
             max_objects=64,
             max_tracks=64,
-            # candidate-root budget for the fused segment gates: the
-            # dense (candidates, H*W) stat reductions scale linearly
-            # with this; 128 = 2x the object slots still satisfies the
-            # equivalence condition (a feasible object is lost only if
-            # 128 LARGER components pass the min-size gate first — the
-            # steady-state town peaks at ~40)
+            # candidate-root budget of the fused segment gates: the JAX
+            # package's value, kept for its semantics; 128 = 2x the object
+            # slots (a feasible object is lost only if 128 LARGER
+            # components pass the min-size gate first — the steady-state
+            # town peaks at ~40); seg_roots_per_scan shows whether it binds
             segment_candidates=128,
         ),
     )

@@ -45,7 +45,9 @@ and ``regularize_plane`` (the exact path's regularization) (both
 ``regularize_plane``) and GICP's lambda loop,
 ``lm_inner`` (the whole loop) and ``lm_propose`` and ``lm_decide`` (a
 split trial) (``csrc/lm_trial.cu``, ``ops/gicp.lm_inner`` /
-``lm_propose`` / ``lm_decide``), and ``set_cond``
+``lm_propose`` / ``lm_decide``), ``segment_objects`` (the segment gates
+and object slots, ``csrc/segment_objects.cu``, launched by
+``ops/segmentation.segment_objects``) and ``set_cond``
 (``csrc/graph_cond.cu``, the conditional nodes' handle write of
 ``core/control.py``). The counts advance where a wrapper launches, so
 inside a captured graph at capture, not at replay; the same launch also
@@ -155,12 +157,12 @@ def nn1_sparse_reference(
 # every library of the port's CUDA sources: this module's, and those of
 # ``ops/hungarian.py`` (``jv_solve``), ``ops/covariance.py``
 # (``plane_reg``), ``core/control.py`` (``graph_cond``),
-# ``ops/gicp.py`` (``lm_trial``) and ``utils/profiling.py`` (``trace``),
-# built together at first use
+# ``ops/gicp.py`` (``lm_trial``), ``utils/profiling.py`` (``trace``) and
+# ``ops/segmentation.py`` (``segment_objects``), built together at first use
 _SOURCES = {"nn1_sparse": ("nn1_sparse.cu",), "knn_classes": ("knn_classes.cu",),
             "jv_solve": ("jv_solve.cu",), "plane_reg": ("plane_reg.cu",),
             "graph_cond": ("graph_cond.cu",), "lm_trial": ("lm_trial.cu",),
-            "trace": ("trace.cu",)}
+            "trace": ("trace.cu",), "segment_objects": ("segment_objects.cu",)}
 _BUILT: Dict[str, _cuda_build.Built] = {}
 
 
@@ -201,10 +203,15 @@ def build() -> Dict[str, _cuda_build.Built]:
         ("lm_trial", "ddlo_lm_inner_shared_max_n", []),
         ("lm_trial", "ddlo_lm_inner_layout", []),
         ("trace", "ddlo_span", [P] * 3 + [I] * 4 + [P]),
+        ("segment_objects", "ddlo_segment_objects", [P] * 5 + [I] * 8 + [ctypes.c_float] * 4 + [P] * 7),
+        ("segment_objects", "ddlo_segment_objects_max_candidates", []),
+        ("segment_objects", "ddlo_segment_objects_lanes", []),
     ):
         f = getattr(built[lib].lib, fn)
         f.argtypes = args
         f.restype = I
+    f = built["segment_objects"].lib.ddlo_segment_objects_work_words
+    f.argtypes, f.restype = [I, I], ctypes.c_longlong
     _BUILT.update(built)
     return _BUILT
 

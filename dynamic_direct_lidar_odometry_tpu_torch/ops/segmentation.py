@@ -2,7 +2,9 @@
 ``ops/segmentation.py``): ``groundRemoval`` (detection.cpp:448-508) as a
 shifted-row stencil, ``labelComponents`` (:544-724) as iterated run-min
 sweeps, and the fused per-segment gates + slot compaction of
-``segment_objects`` (:659-699).
+``segment_objects`` (:659-699): on the card the hand-written
+``csrc/segment_objects.cu``, on the CPU its plain version
+:func:`segment_objects_plain`.
 
 Labels equal the JAX package's bit for bit: a label is the smallest flat
 pixel index of its component. One sweep takes, for every pixel, the
@@ -254,6 +256,161 @@ def compact_segments(
     return slot_roots, slot_valid, pixel_slot.reshape(H, W)
 
 
+# the residual sum's lanes: pixel p is summed in lane p mod SUM_LANES
+# (csrc/segment_objects.cu kLanes; ddlo_segment_objects_lanes)
+SUM_LANES = 2048
+
+
+def _segment_args(labels, valid_point_num, candidates):
+    H, W = labels.shape
+    n = H * W
+    K = min(candidates, n)
+    # the JAX package's f32 bar: min(50, valid_point_num), at least 1
+    min_size = math.ceil(max(min(50.0, float(valid_point_num)), 1.0))
+    return H, W, n, K, min_size
+
+
+def segment_objects_plain(
+    labels: torch.Tensor,  # (H, W) from label_components
+    ranges: torch.Tensor,
+    points: torch.Tensor,  # (H, W, 3) world frame
+    residual_img: torch.Tensor,  # (H, W)
+    sensor_height: torch.Tensor,  # () T[2, 3]
+    min_line_num: int,
+    valid_point_num: int,
+    valid_line_num: int,
+    max_distance: float,
+    min_delta_z: float,
+    max_delta_z: float,
+    max_elevation: float,
+    max_objects: int,
+    candidates: int = 256,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of ``csrc/segment_objects.cu``, same contract
+    as :func:`segment_objects`: per-root sizes by an index add; the roots
+    of at least the minimum size ordered by (size descending, root
+    ascending) and the first ``candidates`` kept; their statistics by
+    scatters through a root -> candidate map (exact in any order but the
+    residual sum, whose order the kernel's note writes out: lane p mod
+    :data:`SUM_LANES` sums in ascending p, then a halving tree over the
+    lanes); the gates; the first ``max_objects`` feasible candidates in
+    candidate order become slots. Adds the qualifying roots to the count
+    ``seg_roots`` (``utils.profiling.count``)."""
+    H, W, n, K, min_size = _segment_args(labels, valid_point_num, candidates)
+    S = max_objects
+    dev = labels.device
+    lab = labels.reshape(-1).long()
+    seg = torch.where(lab >= 0, lab, n)
+    size = torch.zeros((n + 1,), dtype=torch.int64, device=dev).index_add_(
+        0, seg, torch.ones_like(seg))[:n]
+    qual = size >= min_size
+    profiling.count(dev, "seg_roots", qual.sum())
+
+    # candidates: lax.top_k's order over the roots (a stable sort of the
+    # sizes, ties to the lower root)
+    top_sz, top_roots = torch.sort(torch.where(qual, size, -1), descending=True, stable=True)
+    cand_sz, cand_roots = top_sz[:K], top_roots[:K]
+    cand_ok = cand_sz > 0
+    # root -> candidate (K = none; entry n + 1 takes the empty candidates)
+    cand_of = torch.full((n + 2,), K, dtype=torch.int64, device=dev)
+    cand_of.scatter_(0, torch.where(cand_ok, cand_roots, n + 1), torch.arange(K, device=dev))
+    pc = cand_of[seg]  # each pixel's candidate
+
+    # statistics, row K a dump
+    rows = torch.arange(n, device=dev) // W
+    present = torch.zeros(((K + 1) * H,), dtype=torch.bool, device=dev)
+    present.index_fill_(0, pc * H + rows, True)
+    line_count = present.reshape(K + 1, H).sum(dim=1).to(torch.float32)[:K]
+    z = points[..., 2].reshape(-1)
+    r = ranges.reshape(-1)
+    res = residual_img.reshape(-1)
+    big = 1e9
+
+    def extent(x, fill, how):
+        return torch.full((K + 1,), fill, dtype=torch.float32, device=dev).scatter_reduce_(
+            0, pc, x, how, include_self=True)[:K]
+
+    min_z, max_z, max_dist = extent(z, big, "amin"), extent(z, -big, "amax"), extent(r, -big, "amax")
+    res_pos = res > 0
+    res_cnt = torch.zeros((K + 1,), dtype=torch.int64, device=dev).index_add_(
+        0, pc, res_pos.to(torch.int64))[:K].to(torch.float32)
+    # the residual sum: each lane's adds in ascending p (one add per lane
+    # and chunk), then the halving tree
+    L = SUM_LANES
+    lanes = torch.zeros(((K + 1) * L,), dtype=torch.float32, device=dev)
+    v = torch.where(res_pos, res, 0.0)
+    for p0 in range(0, n, L):
+        c = pc[p0 : p0 + L]
+        lanes.index_add_(0, c * L + torch.arange(c.shape[0], device=dev), v[p0 : p0 + L])
+    lanes = lanes.reshape(K + 1, L)[:K]
+    while lanes.shape[1] > 1:
+        h = lanes.shape[1] // 2
+        lanes = lanes[:, :h] + lanes[:, h:]
+    res_sum = lanes[:, 0]
+    avg_res = torch.where(res_cnt > 0, res_sum / torch.clamp_min(res_cnt, 1.0), 0.0)
+
+    size = torch.clamp_min(cand_sz, 0).to(torch.float32)
+    feasible = (size >= 50) & (line_count >= min_line_num)
+    feasible = feasible | ((size >= valid_point_num) & (line_count >= valid_line_num))
+    feasible = feasible & (max_dist <= max_distance)
+    dz = max_z - min_z
+    feasible = feasible & (min_delta_z <= dz) & (dz <= max_delta_z)
+    feasible = feasible & ((min_z - sensor_height) <= max_elevation)
+    feasible = feasible & cand_ok & (size > 0)
+
+    # slots: the feasible candidates in candidate order (sizes descending,
+    # ties to the lower root), the first S of them; slot S a dump
+    rank = torch.cumsum(feasible.to(torch.int64), dim=0) - 1
+    slot = torch.where(feasible & (rank < S), rank, S)
+    slot_roots = torch.full((S + 1,), -1, dtype=torch.int64, device=dev).scatter_(0, slot, cand_roots)
+    slot_avg = torch.zeros((S + 1,), dtype=torch.float32, device=dev).scatter_(0, slot, avg_res)
+    slot_roots, slot_avg = slot_roots[:S], slot_avg[:S]
+    slot_valid = torch.arange(S, device=dev) < feasible.sum()
+    slot_roots = torch.where(slot_valid, slot_roots, -1).to(torch.int32)
+    slot_avg = torch.where(slot_valid, slot_avg, 0.0)
+    slot_of = torch.cat([torch.where(slot < S, slot, -1), torch.full((1,), -1, dtype=torch.int64, device=dev)])
+    pixel_slot = slot_of[pc].to(torch.int32).reshape(H, W)
+    return slot_roots, slot_valid, pixel_slot, slot_avg
+
+
+def _segment_objects_card(labels, ranges, points, residual_img, sensor_height, min_line_num,
+                          valid_point_num, valid_line_num, max_distance, min_delta_z, max_delta_z,
+                          max_elevation, max_objects, candidates):
+    """``csrc/segment_objects.cu``: one ``ddlo_segment_objects`` call (a
+    memset and four kernels), counted as ``segment_objects``; raises on a
+    refused launch or an input it cannot take."""
+    from dynamic_direct_lidar_odometry_tpu_torch.ops import nn_cuda
+
+    lib = nn_cuda.build()["segment_objects"].lib
+    H, W, n, K, min_size = _segment_args(labels, valid_point_num, candidates)
+    S = max_objects
+    dev = labels.device
+    if lib.ddlo_segment_objects_lanes() != SUM_LANES:
+        raise RuntimeError("segment_objects: the kernel's residual lanes differ from SUM_LANES")
+    if not 1 <= K <= lib.ddlo_segment_objects_max_candidates() or S < 1:
+        raise ValueError(f"segment_objects: {K} candidates (1..{lib.ddlo_segment_objects_max_candidates()}) "
+                         f"and {S} slots (at least 1) on the card")
+    ins = dict(labels=(labels, torch.int32, (H, W)), points=(points, torch.float32, (H, W, 3)),
+               ranges=(ranges, torch.float32, (H, W)), residual_img=(residual_img, torch.float32, (H, W)),
+               sensor_height=(sensor_height, torch.float32, ()))
+    for name, (x, dtype, shape) in ins.items():
+        if not isinstance(x, torch.Tensor) or x.device != dev or x.dtype != dtype or tuple(x.shape) != shape:
+            raise ValueError(f"segment_objects: {name} must be a {dtype} tensor of shape {shape} on {dev}")
+    work = torch.empty((lib.ddlo_segment_objects_work_words(n, K),), dtype=torch.int32, device=dev)
+    slot_roots = torch.empty((S,), dtype=torch.int32, device=dev)
+    slot_valid = torch.empty((S,), dtype=torch.bool, device=dev)
+    slot_avg = torch.empty((S,), dtype=torch.float32, device=dev)
+    pixel_slot = torch.empty((H, W), dtype=torch.int32, device=dev)
+    nn_cuda.run_kernel(
+        lib.ddlo_segment_objects, "segment_objects", labels.contiguous(), points.contiguous(),
+        ranges.contiguous(), residual_img.contiguous(), sensor_height, H, W, K, S, min_size,
+        min_line_num, valid_point_num, valid_line_num, max_distance, min_delta_z, max_delta_z,
+        max_elevation, work, profiling.count_cell(dev, "seg_roots"), slot_roots, slot_valid,
+        slot_avg, pixel_slot,
+    )
+    return slot_roots, slot_valid, pixel_slot, slot_avg
+
+
 def segment_objects(
     labels: torch.Tensor,  # (H, W) from label_components
     ranges: torch.Tensor,
@@ -271,67 +428,23 @@ def segment_objects(
     candidates: int = 256,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Fused feasibility gates + slot compaction over candidate roots (the
-    JAX package's ``segment_objects``): per-root sizes from one sort; the
-    top-``candidates`` roots passing the minimum size; every other
-    statistic as a dense (K, H*W) masked reduction over those; the gates
-    of detection.cpp:659-699 (including the hardcoded size 50); the
-    largest ``max_objects`` feasible roots become slots.
+    JAX package's ``segment_objects``): per-root sizes; the
+    top-``candidates`` roots passing the minimum size (size descending,
+    ties to the lower root); their distinct rows, z extent, largest range
+    and mean positive residual; the gates of detection.cpp:659-699
+    (including the hardcoded size 50); the largest ``max_objects``
+    feasible candidates become slots. Each call adds the roots passing
+    the minimum size to the device count ``seg_roots``, which says
+    whether the candidate budget binds.
+
+    CUDA tensors launch ``csrc/segment_objects.cu`` (or raise), CPU
+    tensors run :func:`segment_objects_plain`; both give the same bits.
 
     Returns slot_roots (S,) int32 (-1 = empty), slot_valid (S,),
     pixel_slot (H, W) int32 (-1 = none), slot_avg_residuum (S,)."""
-    H, W = labels.shape
-    n = H * W
-    dev = labels.device
-    lab = labels.reshape(-1)
-    member = lab >= 0
-    seg = torch.where(member, lab, n)
-
-    # per-root pixel counts from the sorted root ids: each root is one run
-    srt = torch.sort(seg).values
-    idx = torch.arange(n, device=dev)
-    true1 = torch.ones((1,), dtype=torch.bool, device=dev)
-    is_start = torch.cat([true1, srt[1:] != srt[:-1]])
-    run_start = torch.cummax(torch.where(is_start, idx, -1), dim=0).values
-    is_last = torch.cat([srt[:-1] != srt[1:], true1])
-    run_len = (idx - run_start + 1).to(torch.float32)
-
-    K = min(candidates, n)
-    min_size = max(min(50.0, float(valid_point_num)), 1.0)
-    cand_score = torch.where(is_last & (srt < n) & (run_len >= min_size), run_len, -1.0)
-    cand_sz, cand_pos = _top_k_stable(cand_score, K)
-    cand_roots = srt[cand_pos]
-    cand_ok = cand_sz > 0
-    size = torch.clamp_min(cand_sz, 0.0)
-
-    # dense (K, n) candidate membership; every statistic reduces over it
-    onehot = (lab[None, :] == cand_roots[:, None]) & cand_ok[:, None]
-    line_count = onehot.reshape(K, H, W).any(dim=2).sum(dim=1).to(torch.float32)
-    z = points[..., 2].reshape(-1)
-    r = ranges.reshape(-1)
-    res = residual_img.reshape(-1)
-    big = 1e9
-    min_z = torch.where(onehot, z[None, :], big).amin(dim=1)
-    max_z = torch.where(onehot, z[None, :], -big).amax(dim=1)
-    max_dist = torch.where(onehot, r[None, :], -big).amax(dim=1)
-    res_pos = onehot & (res > 0)[None, :]
-    res_sum = torch.where(res_pos, res[None, :], 0.0).sum(dim=1)
-    res_cnt = res_pos.sum(dim=1).to(torch.float32)
-    avg_res = torch.where(res_cnt > 0, res_sum / torch.clamp_min(res_cnt, 1.0), 0.0)
-
-    feasible = (size >= 50) & (line_count >= min_line_num)
-    feasible = feasible | ((size >= valid_point_num) & (line_count >= valid_line_num))
-    feasible = feasible & (max_dist <= max_distance)
-    dz = max_z - min_z
-    feasible = feasible & (min_delta_z <= dz) & (dz <= max_delta_z)
-    feasible = feasible & ((min_z - sensor_height) <= max_elevation)
-    feasible = feasible & cand_ok & (size > 0)
-
-    top_sz, top_idx = _top_k_stable(torch.where(feasible, size, -1.0), max_objects)
-    slot_valid = top_sz > 0
-    slot_roots = torch.where(slot_valid, cand_roots[top_idx], -1).to(torch.int32)
-    slot_avg_res = torch.where(slot_valid, avg_res[top_idx], 0.0)
-
-    # pixel -> slot: a pixel belongs to at most one valid slot's root
-    in_slot = (lab[None, :] == slot_roots[:, None]) & slot_valid[:, None]  # (S, n)
-    pixel_slot = torch.where(in_slot.any(dim=0), torch.argmax(in_slot.to(torch.int32), dim=0), -1)
-    return slot_roots, slot_valid, pixel_slot.to(torch.int32).reshape(H, W), slot_avg_res
+    args = (labels, ranges, points, residual_img, sensor_height, min_line_num, valid_point_num,
+            valid_line_num, max_distance, min_delta_z, max_delta_z, max_elevation, max_objects,
+            candidates)
+    if labels.is_cuda:
+        return _segment_objects_card(*args)
+    return segment_objects_plain(*args)

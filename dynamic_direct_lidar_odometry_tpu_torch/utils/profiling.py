@@ -263,6 +263,13 @@ def count(device, key: str, n: Any = 1) -> None:
     counts_buffer(device)[getattr(_ROW, "row", 0), _slot(key)].add_(n)
 
 
+def count_cell(device, key: str) -> torch.Tensor:
+    """``key``'s int64 count in this thread's row, as a 0-d view: for a
+    kernel that adds to the count itself (its data pointer), with no
+    launch of its own."""
+    return counts_buffer(device)[getattr(_ROW, "row", 0), _slot(key)]
+
+
 def mark(device, end: Optional[str] = None, begin: Optional[str] = None) -> None:
     """A stamp on ``device``'s clock: close the span ``end`` and open the
     span ``begin`` of this thread's count row (either may be None). On

@@ -20,6 +20,8 @@ import torch
 
 from golden_scenes import golden_cfg
 from torch_parity import assert_boxes_match, n, port_cfg, t
+from torch_segment_cases import blobs as _blobs
+import torch_segment_cases
 
 from dynamic_direct_lidar_odometry_tpu.detection import detection as jdetection
 from dynamic_direct_lidar_odometry_tpu.io import synthetic
@@ -28,6 +30,7 @@ from dynamic_direct_lidar_odometry_tpu.ops import projection as jprojection
 from dynamic_direct_lidar_odometry_tpu.ops import segmentation as jsegmentation
 from dynamic_direct_lidar_odometry_tpu_torch.detection import detection
 from dynamic_direct_lidar_odometry_tpu_torch.ops import bbox, projection, segmentation
+from dynamic_direct_lidar_odometry_tpu_torch.utils import profiling
 
 
 def _scene(H=32, W=512, seed=7, T=None):
@@ -134,18 +137,6 @@ def test_ground_removal_matches_jax():
     np.testing.assert_array_equal(n(p.eligible), np.asarray(j.eligible))
 
 
-def _blobs(H, W, seed):
-    rng = np.random.default_rng(seed)
-    ranges = np.full((H, W), 20.0, np.float32)
-    for _ in range(10):
-        r0, c0 = rng.integers(0, H - 6), rng.integers(0, W - 10)
-        ranges[r0 : r0 + rng.integers(3, 7), c0 : c0 + rng.integers(4, 11)] = rng.uniform(3.0, 8.0)
-    ranges[2:6, :5] = 5.0  # one object across the ring seam
-    ranges[2:6, -5:] = 5.0
-    eligible = rng.uniform(size=(H, W)) > 0.05
-    return ranges, eligible
-
-
 def _snake(H=24, W=96):
     ranges = np.full((H, W), 20.0, np.float32)
     eligible = np.zeros((H, W), bool)
@@ -195,25 +186,40 @@ def test_label_components_matches_jax(case):
         assert jl[3, 0] == jl[3, W - 1] >= 0  # merged across the seam
 
 
-@pytest.mark.parametrize("seed", [0, 1, 2])
-def test_segment_objects_matches_jax(seed):
-    rng = np.random.default_rng(seed)
-    H, W = 24, 96
-    ranges, eligible = _blobs(H, W, seed + 10)
-    theta, ax, ay = 0.25, 360.0 / W, 2 * 45.0 / (H - 1)
-    labels = jsegmentation.label_components(jnp.asarray(ranges), jnp.asarray(eligible), theta, ax, ay).labels
-    zz = np.linspace(2.0, 0.0, H)[:, None].repeat(W, 1).astype(np.float32)
-    pts = np.stack([ranges, np.zeros_like(ranges), zz], axis=-1)
-    res = ((rng.uniform(size=(H, W)) < 0.3) * rng.uniform(0.0, 0.5, (H, W))).astype(np.float32)
-    kw = dict(min_line_num=3, valid_point_num=10, valid_line_num=3, max_distance=10.0,
-              min_delta_z=0.2, max_delta_z=4.0, max_elevation=3.0, max_objects=6, candidates=16)
-    j = jsegmentation.segment_objects(labels, jnp.asarray(ranges), jnp.asarray(pts),
-                                      jnp.asarray(res), jnp.float32(0.0), **kw)
-    p = segmentation.segment_objects(t(labels), t(ranges), t(pts), t(res), torch.tensor(0.0), **kw)
-    assert int(np.asarray(j[1]).sum()) >= 2
+@pytest.mark.parametrize("case", torch_segment_cases.CASES)
+def test_segment_objects_matches_jax(case):
+    """The port's plain version (the CPU path) against the JAX package on
+    tests/torch_segment_cases.py's cases: the three seeds of random blobs,
+    equal sizes, a binding candidate cap, few feasible candidates, the
+    seam, a window, isolated pixels and an empty image; ``seg_roots``
+    against a numpy count."""
+    labels, ranges, pts, res, h, kw = torch_segment_cases.case(case)
+    j = jsegmentation.segment_objects(jnp.asarray(labels), jnp.asarray(ranges), jnp.asarray(pts),
+                                      jnp.asarray(res), jnp.float32(h), **kw)
+    with profiling.device_counts("cpu") as counts:
+        p = segmentation.segment_objects(t(labels), t(ranges), t(pts), t(res), torch.tensor(h), **kw)
     for a, b in zip(p[:3], j[:3]):
         np.testing.assert_array_equal(n(a), np.asarray(b))
     np.testing.assert_allclose(n(p[3]), np.asarray(j[3]), atol=1e-6)
+    roots = torch_segment_cases.qualifying_roots(labels, kw)
+    assert counts.get("seg_roots", 0) == roots
+    valid = int(np.asarray(j[1]).sum())
+    sizes = np.bincount(labels[labels >= 0], minlength=labels.size)
+    if case == "empty":
+        assert roots == valid == 0
+    elif case in ("cap", "singletons"):
+        assert roots > kw["candidates"] and valid >= 1
+    elif case == "few_feasible":
+        assert 1 <= valid < kw["max_objects"]
+    elif case == "window":
+        assert valid >= 1 and (labels[:20] < 0).all() and (labels[:, 45:] < 0).all()
+    else:
+        assert valid >= 2
+    if case == "ties":  # the slots cut through a run of equal sizes
+        taken = sizes[np.asarray(j[0])[np.asarray(j[1])]]
+        assert (sizes == taken[-1]).sum() > (taken == taken[-1]).sum()
+    if case == "seam":
+        assert labels[6, 0] == labels[6, -1] >= 0 and n(p[2])[6, -1] >= 0
 
 
 # ---------------------------------------------------------------------------

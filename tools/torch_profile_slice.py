@@ -58,7 +58,8 @@ import time
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 HAND_WRITTEN = ("nn1_kernel", "knn_classes_kernel", "jv_solve_kernel", "plane_reg_kernel", "window_cov_kernel",
-                "set_cond_kernel", "lm_propose_kernel", "lm_decide_kernel", "lm_inner_kernel", "span_kernel")
+                "set_cond_kernel", "lm_propose_kernel", "lm_decide_kernel", "lm_inner_kernel", "span_kernel",
+                "seg_count_kernel", "seg_select_kernel", "seg_stats_kernel", "seg_finish_kernel")
 
 
 def idle_by_span(device, mapped) -> dict:
