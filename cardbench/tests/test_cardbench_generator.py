@@ -1,11 +1,18 @@
 """The generator: a seed renders the same lap twice, the lap closes in pose
-and in movers, and no static box stands within the clearance of the path."""
+and in movers, and no static box stands within the clearance of the path;
+the spherical renders are pinned to their bits; a camera's returns land on
+their own pixels of the port's camera grid, its truth pose is the camera's,
+and ``k4a-walk`` gives the kantplatz detector what it needs to be judged."""
+
+import hashlib
+import json
 
 import numpy as np
 import pytest
 import torch
 from conftest import BENCH
 
+from reference import judge
 from traffic import generator
 
 MIXES = sorted(p.stem for p in (BENCH / "traffic").glob("*.json"))
@@ -74,3 +81,113 @@ def test_a_fleet_tiles_the_lap_and_stamps_keep_rising():
     drv = type("D", (), {"feed": feed, "torch": torch})()
     stamps = [float(harness.Driver.stamp(drv, j)[0]) for j in range(1, 60)]
     assert all(b > a for a, b in zip(stamps, stamps[1:]))
+
+
+# sha256 of points, mask and mover of ``_small(mix)`` at scans [0, 5, 9],
+# as the parent of the camera sensor model rendered them (recorded from
+# that commit); PyTorch's vectorized CPU kernels (AVX2, AVX512) round
+# apart from its scalar ones (DEFAULT)
+PINNED = {
+    (2**33 + 17, "vector"): "0b0881627421b30c4e1c5b4f4e2c69144b09f6a1799fdb0cde13daf5b95ee30e",
+    (7, "vector"): "a5829922a608bee22b4177bea2039e5f9bafc657b4e288fa468b93ebc523133c",
+    (2**33 + 17, "DEFAULT"): "d20f494390acb8fbc32423e4f7593d8bed942719da1fd7322f5ff3aa0a874999",
+    (7, "DEFAULT"): "fa526fa77a1d607740c53edf11092316765b33ef419f5317e7eef40d4b5367aa",
+}
+
+
+@pytest.mark.parametrize("seed", [2**33 + 17, 7])
+@pytest.mark.parametrize("name", ["loop-walk", "loop-walk-fleet8"])
+def test_spherical_renders_are_pinned(name, seed):
+    cap = torch.backends.cpu.get_cpu_capability()
+    lap = generator.render_lap(_small(generator.load_mix(name)), seed, "cpu", scans=[0, 5, 9])
+    h = hashlib.sha256()
+    for t in (lap.points, lap.mask, lap.mover):
+        h.update(t.contiguous().numpy().tobytes())
+    assert h.hexdigest() == PINNED[seed, "DEFAULT" if cap == "DEFAULT" else "vector"]
+
+
+def _camera(rows=32, columns=32, **sensor):
+    mix = generator.load_mix("k4a-walk")
+    return dict(mix, sensor=dict(mix["sensor"], rows=rows, columns=columns, **sensor))
+
+
+def _world(lap, scans):
+    P = torch.as_tensor(lap.scene.poses[scans])
+    return torch.nan_to_num(lap.points.double()) @ P[:, :3, :3].transpose(1, 2) + P[:, None, :3, 3]
+
+
+def test_camera_returns_land_on_their_own_pixels():
+    from dynamic_direct_lidar_odometry_tpu_torch.ops.projection import camera_grid_rowcol
+
+    H, W = 32, 48
+    mix = _camera(H, W)
+    lap = generator.render_lap(mix, 2**40 + 3, "cpu", scans=range(0, 378, 21))
+    v, u = torch.meshgrid(torch.arange(H), torch.arange(W), indexing="ij")
+    hits = 0
+    for pts, mask in zip(lap.points, lap.mask):
+        row, col, ok = camera_grid_rowcol(pts[mask], H, W, mix["sensor"]["half_fov_deg"])
+        assert bool(ok.all())
+        assert torch.equal(row.long(), v.reshape(-1)[mask]) and torch.equal(col.long(), u.reshape(-1)[mask])
+        hits += int(mask.sum())
+    assert hits > H * W * len(lap.points) // 2
+
+
+@pytest.mark.parametrize("pitch", [0.0, 20.0])
+def test_the_truth_pose_is_the_cameras(pitch):
+    """With the town's boxes beyond range and no noise, every return that
+    is not a mover is the ground: put in the world with the scene's poses,
+    each lies on the ground plane. The camera looks along the path, x to its
+    right; the top rows' returns in the town lie above it."""
+    mix = _camera(pitch_deg=pitch)
+    open_mix = dict(mix, sensor=dict(mix["sensor"], noise=0.0),
+                    town=dict(mix["town"], half=100.0, fixed_boxes=[]))
+    scans = [0, 90, 200]
+    lap = generator.render_lap(open_mix, 11, "cpu", scans=scans)
+    sc = lap.scene
+    ground = lap.mask & (lap.mover < 0)
+    assert int(ground.sum()) > 0
+    z = _world(lap, scans)[..., 2]
+    assert float((z[ground] - sc.ground_z).abs().max()) < 1e-4
+    P, base = sc.poses[scans], generator.loop_poses(mix["path"])[scans]
+    np.testing.assert_allclose(P[:, :3, 3], base[:, :3, 3])
+    a = np.radians(pitch)
+    heading = base[:, :3, 0] * np.cos(a) - base[:, :3, 2] * np.sin(a)
+    np.testing.assert_allclose(P[:, :3, 2], heading, atol=1e-12)  # optical z
+    np.testing.assert_allclose(P[:, :3, 0], -base[:, :3, 1], atol=1e-12)  # optical x
+    town = generator.render_lap(mix, 11, "cpu", scans=scans)
+    top = town.mask.reshape(len(scans), 32, 32)[:, :8].reshape(len(scans), -1)
+    zt = _world(town, scans)[..., 2].reshape(len(scans), 32, 32)[:, :8].reshape(len(scans), -1)
+    assert int(top.sum()) > 0
+    assert bool((zt - torch.as_tensor(P[:, 2, 3])[:, None])[top].min() > 0)
+
+
+def _kantplatz_detection():
+    with open(BENCH / "deployments" / "kantplatz-k4a-512.json") as f:
+        return json.load(f)["config"]["detection"]
+
+
+def test_k4a_walk_is_the_kantplatz_cameras_scan():
+    det, sensor = _kantplatz_detection(), generator.load_mix("k4a-walk")["sensor"]
+    assert (sensor["rows"], sensor["columns"]) == (det["rows"], det["columns"])
+    assert sensor["model"] == "camera" and sensor["max_range"] == det["max_distance"]
+
+
+def test_k4a_walk_gives_the_detector_structure_and_movers():
+    """The full-size mix's geometry (no noise) on every 14th scan of the
+    lap: at least 25 % of each scan's rays return from a wall or a box
+    within range; the sampled scans alone hold at least
+    ``MIN_VISIBLE_PIXELS`` mover returns inside the detection window and
+    range; at least 30 % of them show a mover by ``MIN_MOVER_PIXELS``
+    such returns."""
+    mix = generator.load_mix("k4a-walk")
+    mix = dict(mix, sensor=dict(mix["sensor"], noise=0.0))
+    scans = list(range(0, mix["path"]["scans_per_lap"], 14))
+    lap = generator.render_lap(mix, 1, "cpu", scans=scans)
+    structure = lap.mask & (lap.mover < 0) & (_world(lap, scans)[..., 2] > lap.scene.ground_z + 1e-3)
+    assert float(structure.float().mean(dim=1).min()) >= 0.25
+    visible = judge.visible_movers(lap.points, lap.mover, _kantplatz_detection())
+    assert int(visible.sum()) >= judge.MIN_VISIBLE_PIXELS
+    M = lap.scene.mover_lo.shape[1]
+    per = torch.stack([torch.bincount(torch.where(v, m.long(), M), minlength=M + 1)[:M]
+                       for v, m in zip(visible, lap.mover)])
+    assert float((per.amax(dim=1) >= judge.MIN_MOVER_PIXELS).float().mean()) >= 0.30

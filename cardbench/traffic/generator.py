@@ -4,13 +4,25 @@ rendered on the device from a mix's parameters and the run's seed.
 A mix (``cardbench/traffic/<mix>.json``) names the sensor, the town, the
 loop and the movers; this module reads any mix and knows none by name.
 The renderer is a PyTorch copy of the port's ``io/synthetic.render_scan``
-(axis-aligned boxes over a ground plane, organized rows x azimuth scans,
-row 0 the top ring, range noise ``noise / max(t, 1)`` relative), and the
-town of ``io/synthetic.World.town`` / ``io/dataset.steady_state_sequence``
+(axis-aligned boxes over a ground plane, organized scans, row 0 the top
+row, range noise ``noise / max(t, 1)`` relative), and the town of
+``io/synthetic.World.town`` / ``io/dataset.steady_state_sequence``
 (walls, static boxes drawn from the mix's layout seed, boxes within the
 clearance of the path dropped). Unlike those, the path is a circle and
 every mover walks back and forth along a segment a whole number of times
 a lap, so a lap cycles with no seam in pose or in movers.
+
+The mix's ``sensor.model`` picks one of two sensor models:
+
+- ``spherical`` (the default): a LiDAR's rows x azimuth scan, elevation
+  from ``fov_up_deg`` to ``fov_down_deg`` and azimuth from -pi, in the
+  sensor frame (x forward, z up) that the path's poses give.
+- ``camera``: a depth camera's rows x columns pixels on the equiangular
+  grid of ``half_fov_deg`` on both axes that the port's camera residual
+  grid (``ops/projection.camera_grid_rowcol``) inverts, in the optical
+  frame (x right, y down, z forward): every return lands back on its own
+  pixel. The camera sits on the path's base, optical axis forward,
+  pitched down by ``pitch_deg``; the scene's poses are the camera's.
 
 What the seed changes: the scan on the loop that a run starts from and
 the sensor noise. The town, the loop and the movers' motion over the lap
@@ -50,7 +62,7 @@ class Scene:
 
     box_lo: np.ndarray  # (K, 3) static boxes' minimum corners (walls first)
     box_hi: np.ndarray  # (K, 3)
-    poses: np.ndarray  # (L, 4, 4) the sensor's pose at each scan of the lap
+    poses: np.ndarray  # (L, 4, 4) the sensor's (a camera's optical) pose at each scan of the lap
     mover_lo: np.ndarray  # (L, M, 3) each mover's box at each scan of the lap
     mover_hi: np.ndarray  # (L, M, 3)
     ground_z: float
@@ -135,11 +147,35 @@ def mover_boxes(movers: dict, L: int, dt: float):
     return c - half, c + half
 
 
+def camera_mount(pitch_deg: float) -> np.ndarray:
+    """(4, 4) the optical frame in the base's: optical z (forward) on
+    base x, optical x (right) on base -y, optical y (down) on base -z,
+    then pitched down by ``pitch_deg`` about the base's y axis."""
+    a = math.radians(pitch_deg)
+    pitch = np.array([[math.cos(a), 0.0, math.sin(a)], [0.0, 1.0, 0.0],
+                      [-math.sin(a), 0.0, math.cos(a)]])
+    M = np.eye(4)
+    M[:3, :3] = pitch @ np.array([[0.0, 0.0, 1.0], [-1.0, 0.0, 0.0], [0.0, -1.0, 0.0]])
+    return M
+
+
+def sensor_model(sensor: dict) -> str:
+    """The mix's sensor model: ``spherical`` (the default) or ``camera``."""
+    model = sensor.get("model", "spherical")
+    if model not in ("spherical", "camera"):
+        raise ValueError(f"unknown sensor model {model!r}")
+    return model
+
+
 def build_scene(mix: dict) -> Scene:
-    """The mix's town, loop and movers (no randomness but the layout seed)."""
-    town, path = mix["town"], mix["path"]
-    poses = loop_poses(path)
-    xy = poses[:, :2, 3]
+    """The mix's town, loop and movers (no randomness but the layout
+    seed). For a camera the poses are the optical frame's on the base."""
+    town, path, sensor = mix["town"], mix["path"], mix["sensor"]
+    base = loop_poses(path)
+    xy = base[:, :2, 3]
+    poses = base
+    if sensor_model(sensor) == "camera":
+        poses = base @ camera_mount(float(sensor.get("pitch_deg", 0.0)))
     margin = float(town.get("clear_margin", 1.5))
     boxes = _town(town)
     kept = boxes[:4] + [
@@ -150,18 +186,35 @@ def build_scene(mix: dict) -> Scene:
     s = np.stack([b[1] for b in kept])
     mlo, mhi = mover_boxes(mix["movers"], len(poses), float(mix["dt"]))
     return Scene(c - s / 2, c + s / 2, poses, mlo, mhi,
-                 float(town.get("ground_z", 0.0)), float(mix["sensor"].get("max_range", 60.0)))
+                 float(town.get("ground_z", 0.0)), float(sensor.get("max_range", 60.0)))
 
 
 def sensor_rays(sensor: dict, device) -> torch.Tensor:
     """(H*W, 3) float64 unit rays in the sensor frame, row-major, row 0
-    the top ring, azimuth from -pi (``render_scan``'s grid)."""
+    the top: the camera's (``camera_rays``) or the spherical scan's,
+    azimuth from -pi (``render_scan``'s grid)."""
+    if sensor_model(sensor) == "camera":
+        return camera_rays(sensor, device)
     H, W = int(sensor["rows"]), int(sensor["columns"])
     elev = torch.deg2rad(torch.linspace(float(sensor["fov_up_deg"]), float(sensor["fov_down_deg"]), H,
                                         dtype=torch.float64, device=device))
     azim = torch.arange(W, dtype=torch.float64, device=device) * (2 * math.pi / W) - math.pi
     el, az = torch.meshgrid(elev, azim, indexing="ij")
     return torch.stack([el.cos() * az.cos(), el.cos() * az.sin(), el.sin()], dim=-1).reshape(-1, 3)
+
+
+def camera_rays(sensor: dict, device) -> torch.Tensor:
+    """(H*W, 3) float64 unit rays in the optical frame on the equiangular
+    grid of half-angle h: pixel (v, u) at phi = -h + (v + 1/2) 2h / H
+    (down), theta = -h + (u + 1/2) 2h / W (right), the ray
+    (cos phi sin theta, sin phi, cos phi cos theta)."""
+    H, W = int(sensor["rows"]), int(sensor["columns"])
+    h = math.radians(float(sensor["half_fov_deg"]))
+    f64 = dict(dtype=torch.float64, device=device)
+    phi = -h + (torch.arange(H, **f64) + 0.5) * (2 * h / H)
+    theta = -h + (torch.arange(W, **f64) + 0.5) * (2 * h / W)
+    ph, th = torch.meshgrid(phi, theta, indexing="ij")
+    return torch.stack([ph.cos() * th.sin(), ph.sin(), ph.cos() * th.cos()], dim=-1).reshape(-1, 3)
 
 
 def _slab(o, d_inv, lo, hi):
