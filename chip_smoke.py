@@ -169,8 +169,11 @@ Phases, in order; any failure exits non-zero and prints no result:
    objects) over ``utils.sequence.kantplatz_sequence()`` (6 scans, checked
    against the golden's checksum). Pass: poses within 10 mm of the JAX CPU
    run (``tests/golden/torch_port_kantplatz512_jaxcpu.npz``), keyframe
-   flags equal, every S2M converged, no label outside the window, valid
-   detections within 10 % of JAX's total. Times: per-scan latency (CUDA
+   flags equal, every S2M converged, no label outside the window, every
+   scan's labels equal to the camera grid's plain reference
+   (``cardbench/reference/components.py``; the port departs from JAX's
+   labels there) but in components that touch an edge whose angle lies
+   within one float32 ulp of theta. Times: per-scan latency (CUDA
    events, median after 2 warm-up scans), device busy ms and idle share.
 12. ``pipeline.step_chunk`` with K = 8 over ``bench_config()`` scans 1-8
    against 8 ``pipeline.step`` calls on the card from the same state.
@@ -540,6 +543,23 @@ def env(**kv):
                 os.environ[k] = v
 
 
+def camera_labels_vs_reference(cfg, points, mask, out) -> dict:
+    """A camera-grid step's ``label_components`` labels against the plain
+    reference's (``cardbench/reference/components.py``, ``compare``), on
+    the scan in the world frame as the step put it."""
+    import torch
+
+    sys.path.insert(0, os.path.join(ROOT, "cardbench", "reference"))
+    import components
+
+    from dynamic_direct_lidar_odometry_tpu_torch.core import se3
+
+    T = out.odom.T
+    world = se3.transform_points(T, torch.as_tensor(points, dtype=torch.float32, device=T.device))
+    return components.compare(cfg.detection, out.detections.labels.cpu().numpy(), world.cpu().numpy(),
+                              np.asarray(torch.as_tensor(mask).cpu()), T[:3, 3].cpu().numpy())
+
+
 def run_slice(cfg, points, masks, stamps, device, timed: bool = False, keep=None, eager=False):
     """DDLO through the port's public entry points: init on scan 0, then
     ``pipeline.step`` per scan (a graph replay; ``eager``:
@@ -579,6 +599,8 @@ def run_slice(cfg, points, masks, stamps, device, timed: bool = False, keep=None
         )
         if cfg.detection.window_row_min is not None:
             rec["outside_window"] = detection.labels_outside_window(cfg, out.detections.labels)
+        if cfg.detection.residual_grid == "camera":
+            rec["labels_vs_reference"] = camera_labels_vs_reference(cfg, points[i], masks[i], out)
         if timed:
             rec["ms"] = a.elapsed_time(b)
         if i == keep:
@@ -2124,14 +2146,18 @@ def kantplatz_phase(card):
         outside_window=[r["outside_window"] for r in steps],
         device_busy_ms_per_scan=busy / (n - 1), device_ops_per_scan=ops / (n - 1),
         device_idle_share=1.0 - busy / (n - 1) / mean_ms, mean_ms=mean_ms,
-        launches=card_launches,
+        launches=card_launches, labels_vs_reference=[r["labels_vs_reference"] for r in steps],
     )
     print("kantplatz " + json.dumps(summary), flush=True)
     check(div <= DIVERGENCE_BAR_M, f"kantplatz poses diverge {div * 1e3:.3f} mm from JAX")
     check(summary["keyframe_flags_match_jax"], "kantplatz keyframe flags differ from JAX")
     check(all(v == 0 for v in summary["outside_window"]), "kantplatz: a label outside the window")
-    check(abs(sum(dets) - sum(jax_dets)) <= DETECTION_BAR * sum(jax_dets),
-          f"kantplatz: {sum(dets)} valid detections against {sum(jax_dets)} in the JAX run")
+    # the camera grid's labels are held to the plain reference (the port
+    # departs from JAX there); a pixel may differ only in a component
+    # that touches an edge whose angle lies within one float32 ulp of
+    # theta (the card's atan2)
+    check(all(r["labels_vs_reference"]["unexplained"] == 0 for r in steps),
+          f"kantplatz: labels differ from the reference: {summary['labels_vs_reference']}")
     check(launches >= 3 * (n - 1), f"nn1_sparse launched {launches} times in {n - 1} scans")
     return launches, card_launches
 

@@ -2,11 +2,27 @@
 (counterpart of ``detection/detection.py``; ``projectScan`` +
 ``projectResiduals`` + ``applySegmentation``, detection.cpp:179-382,
 448-818).
+
+On the camera grid (``residual_grid == "camera"``, the fork's Azure
+Kinect image) the connected components depart from the JAX package,
+which takes a LiDAR's ring angles on every grid, in what follows from
+the grid alone (:func:`pixel_angles`):
+
+- the angle predicate takes the camera's own pixel angles
+  (``projection.camera_pixel_deg``: 0.234 deg at 512 x 512) in place of
+  the ring's ``360 / W`` and ``2 ang_bottom / (H - 1)`` (0.703 and 0.352
+  deg);
+- the image's first and last columns are not neighbours (no seam).
+
+Ground removal is the deployment's on every grid (the bottom
+``ground_rows`` rows, detection.cpp:448-508).
+``cardbench/reference/components.py`` is the plain version of the
+camera grid's labels.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -14,6 +30,7 @@ from dynamic_direct_lidar_odometry_tpu_torch.config import DDLOConfig
 from dynamic_direct_lidar_odometry_tpu_torch.ops import bbox as bbox_ops
 from dynamic_direct_lidar_odometry_tpu_torch.ops import projection, segmentation
 from dynamic_direct_lidar_odometry_tpu_torch.ops.bbox import Objects
+from dynamic_direct_lidar_odometry_tpu_torch.utils import profiling
 
 
 class DetectionResult(NamedTuple):
@@ -24,6 +41,17 @@ class DetectionResult(NamedTuple):
     residual_image: torch.Tensor  # (H, W)
     labels: torch.Tensor  # (H, W) raw component roots
     point_index: torch.Tensor  # (H, W) int32 source point per pixel, -1 = none
+
+
+def pixel_angles(det) -> Tuple[float, float, bool]:
+    """(across, down, wrap): the angle predicate's angles in degrees
+    between neighbouring pixels, and whether columns 0 and W-1 are
+    neighbours. A LiDAR's rings: LeGO-LOAM's ``360 / W`` and ``2
+    ang_bottom / (H - 1)`` with the seam (the JAX package's, on every
+    grid); the camera's grid: its own angles, no seam."""
+    if det.residual_grid == "camera":
+        return (*projection.camera_pixel_deg(det.rows, det.columns), False)
+    return 360.0 / det.columns, 2.0 * det.ang_bottom / (det.rows - 1), True
 
 
 def _window_mask(cfg: DDLOConfig, device) -> torch.Tensor | None:
@@ -64,6 +92,8 @@ def detect(
     det = cfg.detection
     H, W = det.rows, det.columns
     S = cfg.capacity.max_objects
+    dev = seg_points_world.device
+    profiling.mark(dev, begin="detection.project")
     if det.organized:
         ri = projection.project_organized(
             seg_points_world, seg_mask, T[:3, 3], H, W, det.minimum_range
@@ -83,10 +113,12 @@ def detect(
         ri.points, ri.valid, ri.ranges, det.ground_rows,
         det.sensor_mount_angle, det.ground_angle_threshold,
     )
+    profiling.mark(dev, "detection.project", "detection.ccl")
+    across, down, wrap = pixel_angles(det)
     seg_res = segmentation.label_components(
-        ri.ranges, g.eligible, det.theta, 360.0 / W, 2.0 * det.ang_bottom / (H - 1),
-        window=_window_mask(cfg, seg_points_world.device),
+        ri.ranges, g.eligible, det.theta, across, down, window=_window_mask(cfg, dev), wrap=wrap,
     )
+    profiling.mark(dev, "detection.ccl", "detection.objects")
     roots, slot_valid, pixel_slot, avg_res = segmentation.segment_objects(
         seg_res.labels, ri.ranges, ri.points, res_img, T[2, 3],
         det.min_line_num, det.valid_point_num, det.valid_line_num,
@@ -102,6 +134,7 @@ def detect(
         pixel_slot,
         -1,
     )
+    profiling.mark(dev, end="detection.objects")
     return DetectionResult(
         objects=objects,
         pixel_slot=pixel_slot,

@@ -23,6 +23,17 @@ class RangeImage(NamedTuple):
 
 _RAD2DEG = 180.0 / math.pi
 
+# the fork's depth-camera grid: an equiangular +-60 deg on both axes
+# (odom.cc:804-827), so a pixel spans 2 * 60 / W deg across and 2 * 60 / H
+# deg down
+CAMERA_HALF_FOV_DEG = 60.0
+
+
+def camera_pixel_deg(H: int, W: int) -> Tuple[float, float]:
+    """(across, down) angle in degrees between neighbouring pixels of the
+    H x W camera grid that :func:`camera_grid_rowcol` projects onto."""
+    return 2.0 * CAMERA_HALF_FOV_DEG / W, 2.0 * CAMERA_HALF_FOV_DEG / H
+
 
 def norm3(d: torch.Tensor) -> torch.Tensor:
     """||d|| over the last axis of size 3, as jnp.linalg.norm adds."""
@@ -71,7 +82,7 @@ def lidar_grid_rowcol(
 
 
 def camera_grid_rowcol(
-    points_sensor: torch.Tensor, H: int, W: int, half_fov_deg: float = 60.0
+    points_sensor: torch.Tensor, H: int, W: int, half_fov_deg: float = CAMERA_HALF_FOV_DEG
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Row/col on the fork's depth-camera grid (odom.cc:804-827)."""
     x, y, z = points_sensor[:, 0], points_sensor[:, 1], points_sensor[:, 2]

@@ -102,11 +102,14 @@ def label_components(
     ang_res_y_deg: float,
     window: torch.Tensor | None = None,
     max_iters: int = 64,
+    wrap: bool = True,
 ) -> SegmentationResult:
     """Angle-predicate connected components: pixels join when
     atan2(d2 sin a, d1 - d2 cos a) > theta for neighbors at ranges d1 >= d2
     (labelComponents, detection.cpp:544-724). ``window``: optional (H, W)
-    bool restricting segmentation (the fork's 156..356 box)."""
+    bool restricting segmentation (the fork's 156..356 box). ``wrap``:
+    columns 0 and W-1 are neighbours (a 360 deg scan); a camera's image
+    has no seam."""
     H, W = ranges.shape
     dev = ranges.device
     if window is not None:
@@ -123,6 +126,8 @@ def label_components(
     e_up = edge(0, *_sin_cos_deg(ang_res_y_deg, dev))
     e_up[0].fill_(False)  # vertical edges don't wrap (detection.cpp:591)
     e_left = edge(1, *_sin_cos_deg(ang_res_x_deg, dev))  # col 0 <-> W-1 wraps
+    if not wrap:
+        e_left[:, 0].fill_(False)
 
     # row runs: key = breaks so far along the row; the seam edge merges the
     # run of column W-1 into the run of column 0

@@ -27,7 +27,12 @@ the counts and the spans' sums:
   each stream's row, :data:`STAGE_SPANS`: ``preprocess``,
   ``covariances``, ``s2s``, ``submap``, ``s2m``
   (``odometry/odometry.py``), ``detection``, ``tracker`` and
-  ``keyframes`` (``pipeline.py``). ``span`` counts the stamps made.
+  ``keyframes`` (``pipeline.py``), and nested in ``detection``,
+  :data:`DETECTION_SPANS` (``detection/detection.py``):
+  ``detection.project`` (the range and residual images, ground
+  removal), ``detection.ccl`` (``label_components``) and
+  ``detection.objects`` (``segment_objects``, ``pca_bboxes``, the
+  dim-ratio relabel). ``span`` counts the stamps made.
 - ``host.<name>.ns`` / ``host.<name>.n``: host spans, :class:`span`
   (:data:`ENTRY_SPANS`: ``entry.prepare``, ``entry.copy_in``,
   ``entry.launch`` and ``entry.clone`` in ``core/control.py`` and the
@@ -71,6 +76,7 @@ STAGES = (
 # the device spans of a stream's step, in the order they run (``graph``,
 # in row 0, holds them), and the entry's host spans, in the order they run
 STAGE_SPANS = ("preprocess", "covariances", "s2s", "submap", "s2m", "detection", "tracker", "keyframes")
+DETECTION_SPANS = ("detection.project", "detection.ccl", "detection.objects")  # inside ``detection``
 ENTRY_SPANS = ("entry.prepare", "entry.copy_in", "entry.launch", "entry.clone")
 
 

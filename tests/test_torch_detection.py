@@ -19,7 +19,8 @@ import pytest
 import torch
 
 from golden_scenes import golden_cfg
-from torch_parity import assert_boxes_match, n, port_cfg, t
+from torch_parity import (assert_boxes_match, camera_reference_labels, jax_objects_from_labels, n,
+                          port_cfg, t)
 from torch_segment_cases import blobs as _blobs
 import torch_segment_cases
 
@@ -352,7 +353,11 @@ def test_detect_matches_jax(organized):
 
 def test_detect_kantplatz_window():
     """The kantplatz preset's segmentation window (rows/cols 156..356 of a
-    512x512 image), at a reduced 32x32 window over a 64x64 image."""
+    512x512 image), at a reduced 32x32 window over a 64x64 image. Its
+    camera grid's labels are held to the plain reference
+    (``cardbench/reference/components.py``; the port departs from JAX
+    there), the objects to JAX's made from those labels, the residual
+    image to JAX's."""
     from dynamic_direct_lidar_odometry_tpu import config as jconfig
 
     cfg = jconfig.kantplatz_config()
@@ -369,8 +374,11 @@ def test_detect_kantplatz_window():
     j = jdetection.detect(cfg, jnp.asarray(w), jnp.asarray(mask), jnp.asarray(reg),
                           jnp.asarray(reg_mask), jnp.asarray(res), jnp.asarray(T))
     p = detection.detect(port_cfg(cfg), t(w), t(mask), t(reg), t(reg_mask), t(res), t(T))
-    jl = np.asarray(j.labels)
-    assert (jl[:16] == -1).all() and (jl >= 0).any()
-    np.testing.assert_array_equal(n(p.labels), jl)
-    np.testing.assert_array_equal(n(p.pixel_slot), np.asarray(j.pixel_slot))
+    pcfg = port_cfg(cfg)
+    assert pcfg.detection.residual_grid == "camera"
+    ref = camera_reference_labels(pcfg, np.nan_to_num(pts), mask, T)
+    assert (ref[:16] == -1).all() and (ref >= 0).any()
+    np.testing.assert_array_equal(n(p.labels), ref)
+    np.testing.assert_array_equal(n(p.pixel_slot),
+                                  jax_objects_from_labels(cfg, w, mask, reg, reg_mask, res, T, ref))
     np.testing.assert_array_equal(n(p.residual_image) > 0, np.asarray(j.residual_image) > 0)

@@ -65,16 +65,35 @@ def test_traced_step_records_every_span(dynamic):
         for i in range(1, 1 + steps):
             st, _ = pipeline.step(cfg, st, q.points[i], q.mask[i], float(q.stamps[i]))
     stages = STAGES if dynamic else ("preprocess", "covariances", "s2s", "submap", "s2m", "keyframes")
-    want = {f"span.{s}.{x}" for s in ("graph",) + stages for x in ("ns", "n")}
+    nested = profiling.DETECTION_SPANS if dynamic else ()
+    want = {f"span.{s}.{x}" for s in ("graph",) + stages + nested for x in ("ns", "n")}
     assert _span_keys(c) == want | {"host.entry.prepare.ns", "host.entry.prepare.n"}
-    assert all(c[f"span.{s}.n"] == steps for s in ("graph",) + stages)
-    # a stamp a stage edge and two for the graph: 10 edges, 8 without the detector
-    assert c["span"] == steps * (12 if dynamic else 10)
+    assert all(c[f"span.{s}.n"] == steps for s in ("graph",) + stages + nested)
+    # a stamp a stage edge and two for the graph: 10 edges, 8 without the
+    # detector; 4 more for the detector's three nested spans
+    assert c["span"] == steps * (16 if dynamic else 10)
     assert c["host.entry.prepare.n"] == steps
     stage_ns = sum(c[f"span.{s}.ns"] for s in stages)
     assert 0 < stage_ns <= c["span.graph.ns"]
     # on the host clock the operations between stages are a small part
     assert stage_ns >= 0.9 * c["span.graph.ns"]
+
+
+@pytest.mark.parametrize("grid", ["lidar", "camera"])
+def test_detection_sub_spans_nest_in_detection(grid):
+    """``detection.project``, ``detection.ccl`` and ``detection.objects``
+    close once a scan, as ``detection`` does, and together take no more
+    than it, on a LiDAR ring and on the camera grid."""
+    cfg, q = tiny_cfg(), _seq()
+    cfg = dataclasses.replace(cfg, detection=dataclasses.replace(cfg.detection, residual_grid=grid))
+    st = pipeline.init_state(cfg, q.points[0], q.mask[0], 0.0, device="cpu")
+    steps = 3
+    with profiling.device_counts("cpu") as c:
+        for i in range(1, 1 + steps):
+            st, _ = pipeline.step(cfg, st, q.points[i], q.mask[i], float(q.stamps[i]))
+    assert all(c[f"span.{s}.n"] == c["span.detection.n"] == steps for s in profiling.DETECTION_SPANS)
+    parts = [c[f"span.{s}.ns"] for s in profiling.DETECTION_SPANS]
+    assert all(p > 0 for p in parts) and sum(parts) <= c["span.detection.ns"]
 
 
 def test_nothing_is_recorded_outside_device_counts():

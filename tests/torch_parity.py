@@ -87,6 +87,51 @@ def n(x) -> np.ndarray:
     return np.asarray(x)
 
 
+def camera_reference_labels(cfg, raw_points, raw_mask, T) -> np.ndarray:
+    """``cardbench/reference/components.py``'s labels of a camera-grid
+    scan (``residual_grid == "camera"``, where the port departs from the
+    JAX package): the scan put in the world frame by the pose ``T`` as
+    ``pipeline.step`` puts it (``se3.transform_points``)."""
+    import sys
+    from pathlib import Path
+
+    ref = str(Path(__file__).resolve().parents[1] / "cardbench" / "reference")
+    if ref not in sys.path:
+        sys.path.insert(0, ref)
+    import components
+
+    from dynamic_direct_lidar_odometry_tpu_torch.core import se3
+
+    T = t(n(T)).to(torch.float32)
+    world = se3.transform_points(T, t(n(raw_points)).to(torch.float32)).numpy()
+    return components.labels_for(cfg.detection, world, n(raw_mask), n(T)[:3, 3])
+
+
+def jax_objects_from_labels(cfg, world, mask, reg, reg_mask, res, T, labels):
+    """The JAX package's pixel slots (``segment_objects``, ``pca_bboxes``
+    and the dim-ratio relabel, as its ``detect`` runs them) from the
+    component ``labels`` given: the objects JAX makes of the camera-grid
+    labels it does not make itself."""
+    from dynamic_direct_lidar_odometry_tpu.ops import bbox as jbbox
+    from dynamic_direct_lidar_odometry_tpu.ops import projection as jprojection
+    from dynamic_direct_lidar_odometry_tpu.ops import segmentation as jsegmentation
+
+    det, S = cfg.detection, cfg.capacity.max_objects
+    H, W = det.rows, det.columns
+    T = jnp.asarray(T)
+    ri = jprojection.project_organized(jnp.asarray(world), jnp.asarray(mask), T[:3, 3], H, W,
+                                       det.minimum_range)
+    res_img = jprojection.project_residuals(jnp.asarray(reg), jnp.asarray(res), jnp.asarray(reg_mask),
+                                            H, W, ang_bottom=det.ang_bottom, grid=det.residual_grid)
+    _, slot_valid, pixel_slot, avg_res = jsegmentation.segment_objects(
+        jnp.asarray(labels), ri.ranges, ri.points, res_img, T[2, 3], det.min_line_num,
+        det.valid_point_num, det.valid_line_num, det.max_distance, det.min_delta_z,
+        det.max_delta_z, det.max_elevation, S, candidates=cfg.capacity.segment_candidates)
+    objects = jbbox.pca_bboxes(ri.points, pixel_slot, slot_valid, avg_res, S, det.max_dim_ratio)
+    keep = objects.valid[jnp.clip(pixel_slot, 0, S - 1)] & (pixel_slot >= 0)
+    return np.asarray(jnp.where(keep, pixel_slot, -1))
+
+
 def rot_err(Ra: np.ndarray, Rb: np.ndarray) -> float:
     """Rotation difference (rad), ||Ra - Rb||_F / sqrt(2): the angle of
     Ra^T Rb to first order, and well conditioned at 0 (the trace/arccos
